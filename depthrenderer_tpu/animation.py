@@ -1,7 +1,7 @@
 """Camera-path animation as pure functions of time, batchable with ``vmap``.
 
 Capability parity with the reference's animation system
-(``DepthRenderer/animation.py:1-119``), re-designed TPU-first: instead of stateful
+(``DepthRenderer/animation.py:1-119``), re-designed for batching: instead of stateful
 per-frame ``update(delta)`` mutation, every animation is fundamentally a pure function
 ``transform_at(t) -> (4, 4)``. The whole camera path of a clip is produced in one shot
 as a ``(T, 4, 4)`` batch via :meth:`Animation.batch` (``jax.vmap`` over frame times),

@@ -1,6 +1,6 @@
 """Depth-displaced quad-grid mesh generation as jitted JAX functions.
 
-This is the TPU-native counterpart of the reference's core algorithm
+This is the JAX counterpart of the reference's core algorithm
 (``Mesh.from_texture``, ``DepthRenderer/render.py:464-545``): a quad grid of
 ``(2^density + 1)^2`` vertices spanning ``x, y ∈ [-1, 1]`` (y scaled by the image
 aspect ratio, ``render.py:494``), with each vertex's z set to ``1 - depth/255``
@@ -10,7 +10,7 @@ counter-clockwise triangles per cell via the index pattern ``(a, b, c), (c, b, d
 (``render.py:519-532``).
 
 Everything here is pure and shape-static, so mesh generation runs fully vectorised
-under ``jit`` on TPU (the reference's fully-vectorised numpy version already had the
+under ``jit`` on the device (the reference's fully-vectorised numpy version already had the
 right dataflow shape; this version additionally avoids host round trips and fuses the
 depth gather).
 

@@ -1,11 +1,11 @@
 """Native (C) host-side frame ops, loaded via ctypes with graceful fallback.
 
 ``frameops.c`` implements the encode-side hot path (PNG writing, BGR/flip
-conversions) as a plain shared library — the TPU-native analogue of the runtime
-native code a production render farm needs around the device compute. The library
+conversions) as a plain shared library — the runtime native code a production
+render farm needs around the device compute. The library
 is built on demand with the system compiler (``python -m
 depthrenderer_tpu.native.build`` or transparently on first use); if no compiler is
-available the pure-Python/Pillow paths keep working.
+available, PNG falls back to ``io.png_encode`` and MJPG output is unavailable.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
-import sysconfig
+import threading
 from pathlib import Path
 
 _HERE = Path(__file__).parent
@@ -22,6 +22,7 @@ _LIB = _HERE / "_frameops.so"
 
 _lib = None
 _tried = False
+_load_lock = threading.Lock()  # writer threads may ask for the library at once
 
 
 def build(force: bool = False) -> bool:
@@ -39,6 +40,11 @@ def build(force: bool = False) -> bool:
 
 
 def _load():
+    with _load_lock:
+        return _load_locked()
+
+
+def _load_locked():
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
@@ -135,10 +141,10 @@ def jpeg_encode_yuv420(y, cb, cr, quality: int = 92) -> bytes:
     """Encode pre-converted planar YUV 4:2:0 as baseline JFIF JPEG bytes.
 
     ``y`` is (H, W) uint8; ``cb``/``cr`` are (ceil(H/2), ceil(W/2)) uint8 —
-    JFIF full-range BT.601, as produced by the TPU-side
+    JFIF full-range BT.601, as produced on the device by
     :func:`depthrenderer_tpu.io.rgba_to_yuv420`. Skips host colour
     conversion and lets render farms pull 1.5 B/px through the
-    device->host link instead of 4 (the measured preset-5 bottleneck).
+    device->host link instead of 4.
     Raises RuntimeError if the native library is unavailable.
     """
     import numpy as np

@@ -463,13 +463,13 @@ size_t jpeg_encode(const uint8_t *img, int32_t w, int32_t h, int32_t channels,
     return b.overflow ? 0 : b.off;
 }
 
-/* Encode pre-converted planar YUV 4:2:0 as baseline JFIF (round 5).
+/* Encode pre-converted planar YUV 4:2:0 as baseline JFIF.
  *
  * y: (h, w); cb/cr: ((h+1)/2, (w+1)/2) — JFIF full-range BT.601, exactly
- * what the TPU-side `rgba_to_yuv420` emits. Skips the colour-convert +
+ * what the device-side `rgba_to_yuv420` emits. Skips the colour-convert +
  * subsample work of `jpeg_encode` AND lets the render farm pull 1.5 B/px
- * through the device->host tunnel instead of 4 (the measured preset-5
- * bottleneck; VERDICT r4 ask #6). Returns bytes written, 0 on failure. */
+ * through the device->host link instead of 4. Returns bytes written, 0 on
+ * failure. */
 size_t jpeg_encode_yuv420(const uint8_t *yp, const uint8_t *cbp,
                           const uint8_t *crp, int32_t w, int32_t h,
                           int32_t quality, uint8_t *out, size_t out_cap) {

@@ -21,11 +21,10 @@ the reference's OpenGL semantics):
 * **Near-plane handling**: the oracle and the soup path CLIP triangles
   straddling the camera plane exactly as GL's fixed-function pipeline does
   (host-side f64 Sutherland-Hodgman against ``clip_w = eps``,
-  ``raster_reference.clip_near_plane``, round 4) — after which the per-pixel
-  ``z_ndc ∈ [-1, 1]`` test reproduces the GL near/far planes. The grid,
-  tiled-Pallas and scan production paths keep the round-3 approximation:
-  straddling triangles are MASKED (``valid &= inv_w > 0`` at setup; the scan
-  prep masks ``clip_w <= 0`` with finite sentinels). The visible difference
+  ``raster_reference.clip_near_plane``) — after which the per-pixel
+  ``z_ndc ∈ [-1, 1]`` test reproduces the GL near/far planes. The grid path
+  and the Hopper kernel keep an approximation: triangles with a corner at
+  ``clip_w <= 0`` are MASKED (``valid &= inv_w > 0`` at setup). The visible difference
   is confined to primitives straddling the camera plane, which only extreme
   camera poses produce (the reference CLI's camera stays ~10 units from a
   depth-4 scene); tests/test_near_clip.py pins the clipped semantics.
@@ -54,8 +53,9 @@ WIREFRAME_EDGE_THRESHOLD = 0.15
 class RasterConfig:
     """Static configuration for the tiled grid rasteriser (hashable → jit-static).
 
-    :param tile_h/tile_w: screen tile size in pixels. (8, 128) matches the f32 TPU
-        register tile; larger tiles amortise the candidate window overlap.
+    :param tile_h/tile_w: screen tile size in pixels for the XLA path; larger
+        tiles amortise the candidate window overlap. (The Hopper kernel bins
+        with its own smaller tile, ``raster_pallas._KT_H x _KT_W``.)
     :param window_rows/window_cols: per-tile candidate window size in grid *cells*.
         Must cover every triangle overlapping a tile; binning picks the window
         placement per tile from exact projected patch bounding boxes. Too-small
@@ -76,18 +76,14 @@ class RasterConfig:
     patch_size: int = 8
     map_batch: int = 32
     edge_cull_threshold: Optional[float] = None
-    # Number of row-anchored candidate windows per tile (merged by depth). 2 covers
-    # double the row span per window — higher binning quality per VMEM byte — at
-    # ~2x coefficient memory; 1 is the default (lowest HBM footprint).
+    # Number of row-anchored candidate windows per tile (merged by depth). A
+    # anchors cover A x the row span of one window; 1 is the default.
     row_anchors: int = 1
 
     def __post_init__(self):
         assert self.tile_h > 0 and self.tile_w > 0
         assert self.window_rows > 0 and self.window_cols > 0
         assert self.chunk_tris > 0 and self.patch_size > 0
-        # The XLA grid path merges any number of row-anchored windows by
-        # depth (round 4); the Pallas tiled path implements 1 or 2 (it
-        # asserts separately).
         assert self.row_anchors >= 1
 
 
@@ -179,20 +175,34 @@ def triangle_planes(p0, p1, p2, z0, z1, z2):
     l0 = e0 * inv_area[..., None]
     l1 = e1 * inv_area[..., None]
     l2 = e2 * inv_area[..., None]
-    zc = z0[..., None] * l0 + z1[..., None] * l1 + z2[..., None] * l2
-    coeffs = jnp.stack([l0, l1, l2, zc], axis=-2)  # (..., 4, 3)
-    return coeffs, area2
+    return jnp.stack([l0, l1, l2, vertex_plane(l1, l2, z0, z1, z2)],
+                     axis=-2), area2  # (..., 4, 3)
+
+
+def vertex_plane(l1, l2, a0, a1, a2):
+    """[A, B, C] of the plane ``a0 + (a1 - a0)·λ1 + (a2 - a0)·λ2`` through a
+    triangle's per-vertex values (depth, or the perspective attributes).
+
+    Written around ``a0`` rather than as ``Σ aᵢ·λᵢ``: at 1080p the λ planes'
+    constant terms reach ~1e3, so each λ evaluates with ~1e-4 of rounding,
+    and the plain sum carries that times ``a`` itself — as much as the depth
+    gap between surfaces half a unit apart, or a tenth of a texel in u. The
+    differences ``aᵢ - a0`` between neighbouring vertices are small, so this
+    form keeps the error near one ulp of the value.
+    """
+    d1 = (a1 - a0)[..., None]
+    d2 = (a2 - a0)[..., None]
+    return d1 * l1 + d2 * l2 + jnp.stack(
+        [jnp.zeros_like(a0), jnp.zeros_like(a0), a0], axis=-1)
 
 
 def sample_texture_bilinear(texture_f32, u, v):
     """Bilinear texture sample with clamp-to-edge wrapping (GL_LINEAR + GL_CLAMP).
 
-    TPU gathers cost ~6 ns *per lookup* regardless of row width (measured: a
-    2M-element take of (N,)u32, (N,4)u32, (N,4)f32 and (N,4)u8 all run ~12 ms on
-    a v5e), so the four filter taps are packed into ONE table row: ``quad[y, x]``
-    holds the RGBA8 texels (y,x), (y,x+1), (y+1,x), (y+1,x+1) as four uint32s,
-    with edge rows/columns duplicated (clamp-to-edge). One take per pixel
-    replaces four — a measured 4x shade-stage speedup at 1080p.
+    The four filter taps are packed into ONE table row: ``quad[y, x]`` holds
+    the RGBA8 texels (y,x), (y,x+1), (y+1,x), (y+1,x+1) as four uint32s, with
+    edge rows/columns duplicated (clamp-to-edge), so one gather per pixel
+    replaces four.
 
     Texels are quantised to 8 bits *before* filtering, matching the reference's
     GL pipeline (GL_LINEAR filters the uploaded RGBA8 texels —

@@ -4,8 +4,7 @@ At production densities the projected grid cells are ~1 px, so rendering is a
 resampling problem: for each pixel, *find* the covering cell instead of testing
 thousands of candidates. This module implements the algorithm in pure XLA (gathers
 and all) to validate its **candidate completeness** against the exhaustive tiled
-rasteriser; the production version moves it into a Pallas kernel with one-hot MXU
-contractions replacing the gathers.
+rasteriser. It is not on any product path.
 
 Per pixel:
 1. Initial guess (r, c) by separable monotone inversion of the projected grid's
@@ -90,10 +89,8 @@ def _inverse_pixels(qx, qy, sx, sy, z, inv_w, uw, vw, zmw, row_y, col_x, n,
                     newton_iters, nbhd, k_epi):
     """The per-pixel pipeline for one flat pixel chunk; returns (covered, u, v, zm)."""
     P = qx.shape[0]
-    # TPU gather throughput is strongly shape-dependent (measured 0.2 G/s for 1D /
-    # lane-unaligned index arrays vs 50-90 G/s for 2D 128-lane-aligned ones), so
-    # the whole pipeline runs on (P/128, 128)-shaped pixels and candidate arrays
-    # keep the pixel axes last.
+    # The pipeline runs on (P/128, 128)-shaped pixels, with the pixel axes of
+    # the candidate arrays last.
     assert P % 128 == 0, P
     qx = qx.reshape(P // 128, 128)
     qy = qy.reshape(P // 128, 128)

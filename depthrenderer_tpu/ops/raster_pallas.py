@@ -1,512 +1,306 @@
-"""Pallas TPU kernel for the tiled grid rasteriser — the production compute path.
+"""Tiled grid rasteriser as a Pallas kernel for NVIDIA Hopper (Triton route).
 
-Same algorithm as :mod:`.raster_grid` (per-tile candidate windows over the projected
-vertex grid, plane-evaluation z-buffer, first-match attribute select), split at the
-natural memory boundary:
+Same algorithm and semantics as :mod:`.raster_grid` — per-tile candidate cell
+windows over the projected vertex grid, min-z depth test, ties to the lowest
+triangle id — but fused so that the (pixel × triangle) plane evaluations stay in
+registers instead of being written to device memory at every chunk step:
 
-* **XLA prepares plane coefficients** per (tile, triangle-chunk): λ0/λ1/λ2/z plane
-  [A, B, C] rows plus the four perspective-attribute planes. This is small, dense,
-  gather-light work (~100 B/triangle).
-* **The Pallas kernel streams the (pixels × triangles) work**: a grid over
-  (tiles, chunks) where each step evaluates every plane at every tile pixel with
-  broadcast FMAs — shapes ``(P, TC)`` with triangles on lanes — and folds the result
-  into VMEM-resident accumulators (best depth + winner attributes) carried across
-  chunk steps in scratch, flash-attention style. The pair arrays never touch HBM;
-  in the pure-XLA formulation their materialisation dominated the frame time
-  (~400 ms at VGA/d=8).
+* XLA projects the vertex grid once per frame into a channel-major
+  ``(8, R, C)`` attribute grid (about 34 MB at mesh density 10, so it stays in
+  the card's 50 MB L2) and computes each tile's candidate cell box from exact
+  projected patch bounding boxes (``raster_grid._tile_bounds``), clamped to the
+  config's row-anchored candidate windows (``raster_grid._tile_windows``).
+* One program per (screen tile, row anchor, frame) loops over its box row by
+  row in chunks of ``_TC`` cells. It loads the chunk's corner vertices, builds
+  both triangles' edge and depth planes in registers, evaluates them at its
+  ``_KT_H x _KT_W`` pixels and keeps the running best depth and winning
+  triangle id per pixel: lowest id among the exact minima of a chunk, strict
+  ``<`` across chunks, so overall the lowest id among the exact minima — the
+  reference's first-drawn-wins depth test (``render.py:448``).
+* After the loop it gathers the winner's corners by id and evaluates u/w, v/w,
+  1/w, z_model/w and the min-barycentric at each pixel.
+* Shading stays in XLA (:func:`common.shade`).
 
-Output is (u, v, z_model, coverage) per pixel; texture sampling and shading stay in
-XLA (bilinear gathers fuse fine there, and keeping them out makes the kernel
-mode-agnostic).
+All arithmetic is f32 on the CUDA cores; there is no ``dot``, so nothing on the
+geometry path can run in TF32.
 
-Depth ties: within a chunk the lowest triangle id wins (iota-min over the matching
-minima); across chunks earlier chunks win (strict less-than merge). Chunk order is
-window row-major, matching the oracle's global order exactly as in raster_grid.
+The kernel bins per ``_KT_H x _KT_W`` tile, smaller than the XLA path's
+``RasterConfig`` tile, so that a 1080p frame gives thousands of programs. A
+tile's candidate box is a subset of its enclosing config tile's, so wherever
+the XLA path's window holds its tile's whole box both paths see the same
+covering triangles; where a config tile overflows its window (quantile-sized
+binning, :func:`raster_grid.measured_config`) this kernel can keep candidates
+the XLA path drops.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-from . import common
+from . import common, raster_grid
 from .common import RasterConfig
 
-_FAR = float(common.FAR_SENTINEL)  # already a Python float
-_HIGHEST = jax.lax.Precision.HIGHEST
+_KT_H, _KT_W = 8, 32     # kernel tile in pixels (powers of two)
+_TC = 16                 # cells per chunk (two triangles each)
+_NUM_WARPS = 4
+_FAR = float(common.FAR_SENTINEL)
+_BIG_ID = 2**31 - 1
+
+# Channels of the projected attribute grid (raster_grid's order).
+_SX, _SY, _Z, _INVW, _UW, _VW, _ZMW, _ZM = range(8)
 
 
-def _prep_tile_planes(vg_cm, wr, wc, px0, py0, row_floor, height, config: RasterConfig):
-    """Plane coefficients for one tile's candidate window, TPU-layout-native.
+def _planes(p0, p1, p2):
+    """Edge planes λ0, λ1, λ2 (normalised by the doubled area) and the doubled
+    signed area of triangles given as (x, y) corner tuples — the arithmetic of
+    :func:`common.triangle_planes`, coefficient by coefficient."""
+    (x0, y0), (x1, y1), (x2, y2) = p0, p1, p2
+    area2 = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0)
+    inv = jnp.where(jnp.abs(area2) > 1e-12, 1.0 / area2, 0.0)
 
-    Everything is computed coefficient-wise on (WR, WC) cell grids and stacked with
-    the triangle axis last — no array ever has a small trailing dimension, which
-    would tile-pad catastrophically on TPU (a (T, 4, 3) coefficient tensor pads to
-    (T, 8, 128), a 170x memory blowup that OOM'd the first version of this path).
+    def edge(ax, ay, bx, by):
+        return (-(by - ay) * inv, (bx - ax) * inv,
+                ((by - ay) * ax - (bx - ax) * ay) * inv)
 
-    :param vg_cm: (8, R, C) channel-major projected attribute grid.
-    :param wr, wc: window origin (traced scalars; vmapped over tiles).
-    :return: ``(cov, attr)`` each (num_chunks, 12, TC) float32 — [A, B, C] plane
-        rows for λ0/λ1/λ2/z and u/w, v/w, 1/w, zm/w respectively.
-
-    Triangle order is (chunk, diagonal, cell) — within a chunk all (a,b,c) triangles
-    precede all (c,b,d) ones. This deviates from the oracle's (cell, diagonal) order
-    only in which of two *exactly* z-tied triangles wins; tied triangles share the
-    edge being shaded, so only float rounding can differ.
-    """
-    WR, WC = config.window_rows, config.window_cols
-    w = jax.lax.dynamic_slice(vg_cm, (0, wr, wc), (8, WR + 1, WC + 1))
-
-    sx, sy, z, invw, uw, vw, zmw, zm = [w[k] for k in range(8)]
-
-    def corners(g):
-        return g[:-1, :-1], g[1:, :-1], g[:-1, 1:], g[1:, 1:]  # a, b, c, d
-
-    covs, attrs = [], []
-    for diag in (0, 1):
-        def tri(g):
-            a, b, c, d = corners(g)
-            return (a, b, c) if diag == 0 else (c, b, d)
-
-        x0, x1, x2 = tri(sx)
-        y0, y1, y2 = tri(sy)
-
-        area2 = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0)
-        valid = area2 > 1e-12
-        # Near-plane: mask triangles with any corner at clip_w <= 0
-        # (sign-flipped projection; see raster_reference.py).
-        w0_, w1_, w2_ = tri(invw)
-        valid &= (w0_ > 0) & (w1_ > 0) & (w2_ > 0)
-        if config.edge_cull_threshold is not None:
-            m0, m1, m2 = tri(zm)
-            spread = jnp.maximum(m0, jnp.maximum(m1, m2)) - jnp.minimum(
-                m0, jnp.minimum(m1, m2)
-            )
-            valid &= spread <= config.edge_cull_threshold
-        inv_area = jnp.where(valid, 1.0 / jnp.where(valid, area2, 1.0), 0.0)
-
-        def edge(ax, ay, bx, by):
-            # e(q) = (bx-ax)(qy-ay) - (by-ay)(qx-ax) = A qx + B qy + C.
-            return (
-                -(by - ay) * inv_area,
-                (bx - ax) * inv_area,
-                ((by - ay) * ax - (bx - ax) * ay) * inv_area,
-            )
-
-        lam = [edge(x1, y1, x2, y2), edge(x2, y2, x0, y0), edge(x0, y0, x1, y1)]
-        # Masked-out triangles: λ0 plane = constant -1 (never covered), z = FAR.
-        lam[0] = tuple(
-            jnp.where(valid, c, k)
-            for c, k in zip(lam[0], (0.0, 0.0, -1.0))
-        )
-
-        def combine(v0, v1, v2):
-            """Plane of Σ λᵢ·vᵢ — the affine interpolant of corner values."""
-            return tuple(
-                v0 * lam[0][k] + v1 * lam[1][k] + v2 * lam[2][k] for k in range(3)
-            )
-
-        zp = combine(*tri(z))
-        zp = tuple(jnp.where(valid, c, k) for c, k in zip(zp, (0.0, 0.0, _FAR)))
-
-        cov_rows = list(lam[0]) + list(lam[1]) + list(lam[2]) + list(zp)
-        attr_rows = (
-            list(combine(*tri(uw)))
-            + list(combine(*tri(vw)))
-            + list(combine(*tri(invw)))
-            + list(combine(*tri(zmw)))
-        )
-        covs.append(jnp.stack(cov_rows).reshape(12, WR * WC))
-        attrs.append(jnp.stack(attr_rows).reshape(12, WR * WC))
-
-    # 1D row-band chunking: chunks are runs of TC cells in window row-major order,
-    # diagonal classes interleaved at chunk granularity. (A 2D row x column band
-    # variant was tried and measured slower — small bands pay too much per-band
-    # loop overhead; full-width chunks at TC=256 lanes amortise best.)
-    cells = WR * WC
-    TC = min(config.chunk_tris // 2, cells)  # cells per chunk (x2 diag chunks)
-    pad = (-cells) % TC
-    if pad:
-        never = jnp.zeros((12, pad), jnp.float32)
-        never = never.at[2].set(-1.0).at[11].set(_FAR)
-        covs = [jnp.concatenate([c, never], axis=1) for c in covs]
-        attrs = [jnp.concatenate([a, jnp.zeros((12, pad), jnp.float32)], axis=1)
-                 for a in attrs]
-    nc = covs[0].shape[1] // TC
-
-    def chunked(arrs):
-        # (2, 12, nc*TC) -> (nc, 2, 12, TC) -> (2*nc, 12, TC), diag-major in chunk.
-        s = jnp.stack(arrs)
-        s = s.reshape(2, 12, nc, TC).transpose(2, 0, 1, 3)
-        return s.reshape(nc * 2, 12, TC)
-
-    cov_b = chunked(covs)
-    attr_b = chunked(attrs)
-
-    # Active chunk range from the *exact* window-column y extents (global full-row
-    # extents are far too loose once the camera tilts: a 0.5° x-rotation inflates a
-    # full row's extent by dozens of cell heights).
-    row_ymin = jnp.minimum(jnp.min(sy[:-1, :], axis=1), jnp.min(sy[1:, :], axis=1))
-    row_ymax = jnp.maximum(jnp.max(sy[:-1, :], axis=1), jnp.max(sy[1:, :], axis=1))
-    tile_ymin = height - (py0.astype(jnp.float32) + config.tile_h - 0.5)
-    tile_ymax = height - (py0.astype(jnp.float32) + 0.5)
-    del px0  # column skipping not worthwhile at full-width chunks
-
-    # Row span of one cell chunk. When TC is a whole number of window rows the
-    # chunks are row-aligned and span exactly TC//WC rows; the +1 is only needed
-    # for chunks that start mid-row (e.g. WC=96, TC=256). The exact bound matters:
-    # at VGA (WC=64, TC=256 = 4 rows) the loose +1 activated ~1 extra chunk per
-    # tile, ~25% of the pair work.
-    rows_per_chunk = TC // WC if TC % WC == 0 else -(-TC // WC) + 1
-    chunk_first_row = (jnp.arange(nc) * TC) // WC
-    idx = jnp.clip(chunk_first_row[:, None] + jnp.arange(rows_per_chunk)[None, :],
-                   0, WR - 1)
-    cymin = jnp.min(row_ymin[idx], axis=1)
-    cymax = jnp.max(row_ymax[idx], axis=1)
-    active = (cymax >= tile_ymin) & (cymin <= tile_ymax)  # (nc,)
-    # Second-window pass: rows below `row_floor` are already covered by the first
-    # window; drop chunks that end before it (duplicates are harmless, just slow).
-    chunk_last_row = ((jnp.arange(nc) + 1) * TC - 1) // WC
-    active &= chunk_last_row >= row_floor
-    any_active = jnp.any(active)
-    first = jnp.argmax(active)
-    last = (nc - 1) - jnp.argmax(active[::-1])
-    jlo = jnp.where(any_active, 2 * first, 0).astype(jnp.int32)
-    jhi = jnp.where(any_active, 2 * (last + 1), 0).astype(jnp.int32)
-
-    return cov_b, attr_b, jlo, jhi
+    return (edge(x1, y1, x2, y2), edge(x2, y2, x0, y0), edge(x0, y0, x1, y1),
+            area2)
 
 
-def _pair_kernel(px0_ref, py0_ref, jlo_ref, jhi_ref, cov_ref, attr_ref, out_ref,
-                 *, config: RasterConfig, height: int):
-    """One grid step per screen tile; inner fori_loop over this tile's active
-    triangle chunks. (A per-chunk grid dimension paid ~8 µs pipeline overhead per
-    step; the loop form runs ~2x faster, and the exact active ranges skip chunks
-    whose cell rows cannot intersect the tile.)"""
-    th, tw = config.tile_h, config.tile_w
-    P = th * tw
-    TC = cov_ref.shape[-1]
+def _raster_kernel(vg_ref, box_ref, z_ref, uw_ref, vw_ref, iw_ref, zmw_ref,
+                   ml_ref, *, ntc, ntiles, anchors, rows, cols, height,
+                   edge_cull):
+    """One program: one screen tile × one row anchor × one frame."""
+    t = pl.program_id(0)
+    a = pl.program_id(1)
+    f = pl.program_id(2)
+    prog = (f * anchors + a) * ntiles + t
+    P = _KT_H * _KT_W
+    plane = rows * cols
+    base = f * 8 * plane
 
-    i = pl.program_id(0)
+    rlo = box_ref[4 * prog]
+    rhi = box_ref[4 * prog + 1]
+    clo = box_ref[4 * prog + 2]
+    chi = box_ref[4 * prog + 3]
+    ncc = jnp.maximum(chi - clo + _TC - 1, 0) // _TC
+    nrow = jnp.maximum(rhi - rlo, 0)
 
-    # Pixel centres as (P, 1) columns (window coords, y up) — built directly in
-    # layout, no reshapes.
-    pix = jax.lax.broadcasted_iota(jnp.int32, (P, 1), 0)
-    qx = px0_ref[i].astype(jnp.float32) + (pix % tw).astype(jnp.float32) + 0.5
-    qy = height - (py0_ref[i].astype(jnp.float32) + (pix // tw).astype(jnp.float32) + 0.5)
-    iota_t = jax.lax.broadcasted_iota(jnp.int32, (P, TC), 1)
+    p = jax.lax.broadcasted_iota(jnp.int32, (P,), 0)
+    px = (t % ntc) * _KT_W + p % _KT_W
+    py = (t // ntc) * _KT_H + p // _KT_W
+    qx1 = px.astype(jnp.float32) + 0.5
+    qy1 = height - (py.astype(jnp.float32) + 0.5)
+    qx, qy = qx1[:, None], qy1[:, None]
+    lane = jax.lax.broadcasted_iota(jnp.int32, (_TC,), 0)
+
+    def load(ch, r, c0):
+        return vg_ref[pl.ds(base + ch * plane + r * cols + c0, _TC)]
 
     def body(j, carry):
-        best_z, best_attr = carry
-        cov = cov_ref[0, j]   # (12, TC): [A, B, C] rows for λ0, λ1, λ2, z.
-        attr = attr_ref[0, j]
+        best_z, best_id = carry
+        r = rlo + j // ncc
+        cb = clo + (j % ncc) * _TC
+        col = cb + lane
+        inb = col < chi
 
-        def plane(k):
-            return (
-                qx * cov[3 * k + 0][None, :]
-                + qy * cov[3 * k + 1][None, :]
-                + cov[3 * k + 2][None, :]
-            )  # (P, TC)
+        def corner(rr, dc):
+            return {ch: load(ch, rr, cb + dc)
+                    for ch in (_SX, _SY, _Z, _INVW)
+                    + ((_ZM,) if edge_cull is not None else ())}
 
-        l0 = plane(0)
-        l1 = plane(1)
-        l2 = plane(2)
-        zz = plane(3)
+        ca, cb_, cc, cd = corner(r, 0), corner(r + 1, 0), corner(r, 1), \
+            corner(r + 1, 1)
+        keys, ids = [], []
+        # Triangles (a, b, c) and (c, b, d) of each cell: the reference's
+        # per-cell order, so ids ascend with (row, column, diagonal).
+        for diag, tri in enumerate(((ca, cb_, cc), (cc, cb_, cd))):
+            l0, l1, l2, area2 = _planes(*[(v[_SX], v[_SY]) for v in tri])
+            # common.vertex_plane's form, written out coefficient by
+            # coefficient: around z0, for precision.
+            dz1 = tri[1][_Z] - tri[0][_Z]
+            dz2 = tri[2][_Z] - tri[0][_Z]
+            zc = (dz1 * l1[0] + dz2 * l2[0], dz1 * l1[1] + dz2 * l2[1],
+                  dz1 * l1[2] + dz2 * l2[2] + tri[0][_Z])
+            valid = inb & (area2 > 1e-12)
+            valid &= (tri[0][_INVW] > 0) & (tri[1][_INVW] > 0) \
+                & (tri[2][_INVW] > 0)
+            if edge_cull is not None:
+                zm = [v[_ZM] for v in tri]
+                spread = jnp.maximum(zm[0], jnp.maximum(zm[1], zm[2])) \
+                    - jnp.minimum(zm[0], jnp.minimum(zm[1], zm[2]))
+                valid &= spread <= edge_cull
 
-        covered = (l0 >= 0.0) & (l1 >= 0.0) & (l2 >= 0.0) & (zz >= -1.0) & (zz <= 1.0)
-        key = jnp.where(covered, zz, _FAR)
-        chunk_best = jnp.min(key, axis=1, keepdims=True)  # (P, 1)
+            def ev(k):
+                return qx * k[0][None, :] + qy * k[1][None, :] + k[2][None, :]
 
-        # Lowest triangle id among the minima (GL first-drawn tie semantics).
-        m = (key == chunk_best) & covered
-        sel = jnp.min(jnp.where(m, iota_t, TC), axis=1, keepdims=True)
-        first = (iota_t == sel).astype(jnp.float32)  # (P, TC) one-hot
+            zz = ev(zc)
+            covered = valid[None, :] & (ev(l0) >= 0.0) & (ev(l1) >= 0.0) \
+                & (ev(l2) >= 0.0) & (zz >= -1.0) & (zz <= 1.0)
+            keys.append(jnp.where(covered, zz, _FAR))
+            ids.append((r * cols + col) * 2 + diag)
+        m = jnp.minimum(jnp.min(keys[0], axis=1), jnp.min(keys[1], axis=1))
+        sel = jnp.minimum(
+            jnp.min(jnp.where(keys[0] == m[:, None], ids[0][None, :], _BIG_ID),
+                    axis=1),
+            jnp.min(jnp.where(keys[1] == m[:, None], ids[1][None, :], _BIG_ID),
+                    axis=1))
+        better = m < best_z
+        return jnp.where(better, m, best_z), jnp.where(better, sel, best_id)
 
-        # Winner attribute planes via one MXU dot (full f32 — bf16 plane
-        # coefficients visibly shift UVs), evaluated at the pixel.
-        picked = jax.lax.dot_general(
-            first, attr,
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_HIGHEST,
-        )  # (P, 12)
-        attrs = jnp.concatenate(
-            [
-                picked[:, 3 * a : 3 * a + 1] * qx
-                + picked[:, 3 * a + 1 : 3 * a + 2] * qy
-                + picked[:, 3 * a + 2 : 3 * a + 3]
-                for a in range(4)
-            ]
-            + [jnp.sum(first * jnp.minimum(l0, jnp.minimum(l1, l2)), axis=1,
-                       keepdims=True)],  # winner min-bary (wireframe mode)
-            axis=1,
-        )  # (P, 5): u/w, v/w, 1/w, zm/w, min-lambda.
+    init = (jnp.full((P,), _FAR, jnp.float32), jnp.zeros((P,), jnp.int32))
+    best_z, best_id = jax.lax.fori_loop(0, nrow * ncc, body, init)
 
-        better = chunk_best < best_z
-        return (
-            jnp.where(better, chunk_best, best_z),
-            jnp.where(better, attrs, best_attr),
-        )
+    # Winner resolve: gather the winning triangle's corners by id.
+    r = best_id // (2 * cols)
+    c = (best_id // 2) % cols
+    diag = best_id % 2
+    corners = ((r, c + diag), (r + 1, c), (r + diag, c + 1))
 
-    init = (
-        jnp.full((P, 1), _FAR, jnp.float32),
-        jnp.zeros((P, 5), jnp.float32),
-    )
+    def gather(ch, rc):
+        return vg_ref[base + ch * plane + rc[0] * cols + rc[1]]
 
-    best_z, best_attr = jax.lax.fori_loop(jlo_ref[i], jhi_ref[i], body, init)
+    pts = [(gather(_SX, rc), gather(_SY, rc)) for rc in corners]
+    l0, l1, l2, _ = _planes(*pts)
+    lam = [k[0] * qx1 + k[1] * qy1 + k[2] for k in (l0, l1, l2)]
 
-    cov_flag = jnp.where(best_z < _FAR, 1.0, 0.0)
-    den = best_attr[:, 2:3]
-    den = jnp.where(jnp.abs(den) > 1e-30, den, 1.0)
-    out_ref[0] = jnp.concatenate(
-        [best_attr[:, 0:1] / den, best_attr[:, 1:2] / den,
-         best_attr[:, 3:4] / den, cov_flag, best_z, best_attr[:, 4:5],
-         jnp.zeros((P, 2), jnp.float32)],
-        axis=1,
-    )  # (P, 8): u, v, z_model, coverage, best_z, min-lambda, pad — z enables
-    # multi-window merging (two row-anchored windows per tile cover spans up to
-    # 2x the window).
+    def interp(ch):
+        # The plane of common.vertex_plane (around corner 0, for precision),
+        # evaluated at the pixel as the XLA path evaluates it.
+        a0 = gather(ch, corners[0])
+        d1 = gather(ch, corners[1]) - a0
+        d2 = gather(ch, corners[2]) - a0
+        return ((d1 * l1[0] + d2 * l2[0]) * qx1 + (d1 * l1[1] + d2 * l2[1]) * qy1
+                + (d1 * l1[2] + d2 * l2[2] + a0))
 
-
-@functools.partial(jax.jit, static_argnames=("config", "height"))
-def raster_pairs_pallas(cov_planes, attr_planes, px0, py0, jlo, jhi, height,
-                        config: RasterConfig):
-    """Stream the pixel×triangle work for all tiles.
-
-    :param cov_planes: (ntiles, nchunks, 12, TC) float32 λ/z plane coefficients.
-    :param attr_planes: (ntiles, nchunks, 12, TC) float32 attribute planes.
-    :param px0, py0: (ntiles,) int32 tile pixel origins.
-    :param jlo, jhi: (ntiles,) int32 active chunk range per tile (chunks outside
-        cannot cover any tile pixel).
-    :return: (ntiles, tile_h*tile_w, 4) float32 — u, v, z_model, coverage.
-    """
-    ntiles, num_chunks = cov_planes.shape[0], cov_planes.shape[1]
-    TC = cov_planes.shape[-1]
-    th, tw = config.tile_h, config.tile_w
-    P = th * tw
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(ntiles,),
-        in_specs=[
-            pl.BlockSpec((1, num_chunks, 12, TC), lambda i, *_: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, num_chunks, 12, TC), lambda i, *_: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, P, 8), lambda i, *_: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
-    )
-
-    kernel = functools.partial(_pair_kernel, config=config, height=height)
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((ntiles, P, 8), jnp.float32),
-    )(px0.astype(jnp.int32), py0.astype(jnp.int32), jlo.astype(jnp.int32),
-      jhi.astype(jnp.int32), cov_planes, attr_planes)
+    out = pl.ds(prog * P, P)
+    z_ref[out] = best_z
+    uw_ref[out] = interp(_UW)
+    vw_ref[out] = interp(_VW)
+    iw_ref[out] = interp(_INVW)
+    zmw_ref[out] = interp(_ZMW)
+    ml_ref[out] = jnp.minimum(lam[0], jnp.minimum(lam[1], lam[2]))
 
 
-
-def _prep_stage_impl(mvp, vertex_grid, uv_grid, width, height, config: RasterConfig):
-    """Stage 1 (XLA): project, bin, and build per-tile plane coefficients."""
-    from . import raster_grid
-
-    vertex_grid = jnp.asarray(vertex_grid, jnp.float32)
-    uv_grid = jnp.asarray(uv_grid, jnp.float32)
+def _prep(mvp, vertex_grid, uv_grid, width, height, config: RasterConfig):
+    """Projected, padded channel-major grid (8, R, C) and the per-(anchor,
+    tile) candidate box [rlo, rhi) x [clo, chi) in cell units."""
     n_r, n_c = vertex_grid.shape[0], vertex_grid.shape[1]
-
-    sx, sy, z, inv_w = common.project_vertices(vertex_grid, mvp, width, height)
-    zm = vertex_grid[..., 2]
-    u = uv_grid[..., 0]
-    v = uv_grid[..., 1]
-    channels = [sx, sy, z, inv_w, u * inv_w, v * inv_w, zm * inv_w, zm]
-
+    vg = raster_grid._project_attribute_grid(mvp, vertex_grid, uv_grid, width,
+                                             height)
     ps = config.patch_size
     cells_r = max(raster_grid._ceil_to(max(n_r - 1, config.window_rows), ps),
                   config.window_rows)
     cells_c = max(raster_grid._ceil_to(max(n_c - 1, config.window_cols), ps),
                   config.window_cols)
-    pad_spec = ((0, cells_r + 1 - n_r), (0, cells_c + 1 - n_c))
-    channels = [jnp.pad(ch.astype(jnp.float32), pad_spec, mode="edge")
-                for ch in channels]
-    vg_cm = jnp.stack(channels, axis=0)  # (8, R, C) channel-major
-
-    th, tw = config.tile_h, config.tile_w
-    ntr = -(-height // th)
-    ntc = -(-width // tw)
-    WR, WC = config.window_rows, config.window_cols
-    cr = vg_cm.shape[1] - 1
-    cc = vg_cm.shape[2] - 1
-
-    # Per-tile candidate spans; two row-anchored windows cover row spans up to
-    # 2*WR losslessly (pass B is empty for tiles that fit one window).
-    r0, r1, c0, c1 = raster_grid._tile_bounds(vg_cm[0], vg_cm[1], config, width,
-                                              height, ntr, ntc)
-    r0, r1 = r0.reshape(-1), r1.reshape(-1)
-    c0, c1 = c0.reshape(-1), c1.reshape(-1)
-
-    wc_ = jnp.clip((c0 + c1 - WC) // 2, 0, max(cc - WC, 0))
-    py0 = jnp.repeat(jnp.arange(ntr, dtype=jnp.int32) * th, ntc)
-    px0 = jnp.tile(jnp.arange(ntc, dtype=jnp.int32) * tw, ntr)
-
-    if config.row_anchors == 1:
-        wr2 = jnp.clip((r0 + r1 - WR) // 2, 0, max(cr - WR, 0)).astype(jnp.int32)
-        wc2 = wc_.astype(jnp.int32)
-        px2, py2 = px0, py0
-        floors = jnp.zeros_like(wr2)
-    else:
-        wr_a = jnp.clip(r0, 0, max(cr - WR, 0))
-        wr_b = jnp.clip(r1 - WR, 0, max(cr - WR, 0))
-        wr_b = jnp.maximum(wr_b, wr_a)
-        # Pass B skips the rows pass A already covers.
-        floor_b = jnp.clip(wr_a + WR - wr_b, 0, WR)
-        # Tiles that fit one window: make pass B fully empty via floor = WR.
-        floor_b = jnp.where(r1 - r0 <= WR, WR, floor_b)
-        wr2 = jnp.concatenate([wr_a, wr_b]).astype(jnp.int32)
-        wc2 = jnp.concatenate([wc_, wc_]).astype(jnp.int32)
-        px2 = jnp.concatenate([px0, px0])
-        py2 = jnp.concatenate([py0, py0])
-        floors = jnp.concatenate([jnp.zeros_like(floor_b), floor_b]).astype(jnp.int32)
-
-    cov, attr, jlo, jhi = jax.vmap(
-        lambda r, c, x, y, f: _prep_tile_planes(vg_cm, r, c, x, y, f, height, config)
-    )(wr2, wc2, px2, py2, floors)  # cov/attr: (anchors*ntiles, nchunks, 12, TC)
-    return cov, attr, px2, py2, jlo, jhi
+    # Columns gain _TC more so a chunk's contiguous loads never leave the row.
+    vg = jnp.pad(vg, ((0, cells_r + 1 - n_r), (0, cells_c + 1 + _TC - n_c),
+                      (0, 0)), mode="edge")
+    kcfg = dataclasses.replace(config, tile_h=_KT_H, tile_w=_KT_W)
+    ntr, ntc = -(-height // _KT_H), -(-width // _KT_W)
+    xs = vg[:cells_r + 1, :cells_c + 1, _SX]
+    ys = vg[:cells_r + 1, :cells_c + 1, _SY]
+    r0, r1, c0, c1 = raster_grid._tile_bounds(xs, ys, kcfg, width, height,
+                                              ntr, ntc)
+    wr, wc, _ = raster_grid._tile_windows(xs, ys, kcfg, width, height, ntr,
+                                          ntc)
+    r0, r1, c0, c1 = (v.reshape(-1) for v in (r0, r1, c0, c1))
+    clo = jnp.maximum(c0, wc)
+    chi = jnp.minimum(c1, wc + config.window_cols)
+    boxes = [jnp.stack([jnp.maximum(r0, wr[:, a]),
+                        jnp.minimum(r1, wr[:, a] + config.window_rows),
+                        clo, chi], axis=-1)
+             for a in range(wr.shape[1])]
+    box = jnp.stack(boxes).astype(jnp.int32)  # (anchors, ntiles, 4)
+    return jnp.transpose(vg, (2, 0, 1)), box
 
 
-_prep_stage = jax.jit(_prep_stage_impl,
-                      static_argnames=("width", "height", "config"))
+def _shade(outs, texture_f32, width, height, anchors, mode):
+    """Merge the row anchors by depth (strict ``<``: the earlier anchor keeps
+    exact ties), assemble the tiles and shade. ``outs`` are (anchors, ntiles,
+    P) arrays of one frame."""
+    best_z, uw, vw, iw, zmw, ml = (o[0] for o in outs)
+    for a in range(1, anchors):
+        take = outs[0][a] < best_z
+        best_z, uw, vw, iw, zmw, ml = (
+            jnp.where(take, o[a], cur)
+            for o, cur in zip(outs, (best_z, uw, vw, iw, zmw, ml)))
+    ntr, ntc = -(-height // _KT_H), -(-width // _KT_W)
+
+    def frame(x):
+        x = x.reshape(ntr, ntc, _KT_H, _KT_W).transpose(0, 2, 1, 3)
+        return x.reshape(ntr * _KT_H, ntc * _KT_W)[:height, :width]
+
+    best_z, uw, vw, iw, zmw, ml = map(frame, (best_z, uw, vw, iw, zmw, ml))
+    den = jnp.where(jnp.abs(iw) > 1e-30, iw, 1.0)
+    return common.shade(best_z < _FAR, uw / den, vw / den, zmw / den,
+                        texture_f32, mode, min_lam=ml)
 
 
-@functools.partial(jax.jit, static_argnames=("width", "height", "config"))
-def _prep_stage_batched(mvps, vertex_grid, uv_grid, width, height,
-                        config: RasterConfig):
-    """Stage 1 for a frame group: vmapped prep, (frame, tile) axes merged.
-
-    One dispatch prepares every tile of every frame in the group; the merged
-    leading axis feeds the Pallas call directly (the kernel is per-tile and does
-    not care which frame a tile belongs to). Batching exists to amortise host
-    dispatch latency (~0.8 ms per call, measured) and per-call queueing overhead,
-    which at VGA rates is comparable to the device compute per frame.
-    """
-    cov, attr, px0, py0, jlo, jhi = jax.vmap(
-        lambda m: _prep_stage_impl(m, vertex_grid, uv_grid, width, height, config)
-    )(mvps)
-    merge = lambda a: a.reshape((a.shape[0] * a.shape[1],) + a.shape[2:])  # noqa: E731
-    return tuple(merge(a) for a in (cov, attr, px0, py0, jlo, jhi))
-
-
-def _shade_stage_impl(tiles, texture_f32, width, height, config: RasterConfig,
-                      mode: str):
-    """Stage 3 (XLA): merge the two window passes by depth, assemble, shade."""
-    th, tw = config.tile_h, config.tile_w
-    ntr = -(-height // th)
-    ntc = -(-width // tw)
-    ntiles = ntr * ntc
-    if config.row_anchors == 1:
-        merged = tiles
-    else:
-        a = tiles[:ntiles]
-        b = tiles[ntiles:]
-        take_b = b[..., 4] < a[..., 4]
-        merged = jnp.where(take_b[..., None], b, a)
-    full = (
-        merged[..., :6].reshape(ntr, ntc, th, tw, 6)
-        .transpose(0, 2, 1, 3, 4)
-        .reshape(ntr * th, ntc * tw, 6)[:height, :width]
-    )
-    u, v, zm, covf = full[..., 0], full[..., 1], full[..., 2], full[..., 3] > 0.5
-    return common.shade(covf, u, v, zm, texture_f32, mode,
-                        min_lam=full[..., 5])
-
-
-_shade_stage = jax.jit(_shade_stage_impl,
-                       static_argnames=("width", "height", "config", "mode"))
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("width", "height", "config", "mode"))
-def _shade_stage_batched(tiles, texture_f32, width, height, config: RasterConfig,
-                         mode: str):
-    """Stage 3 for a frame group: split the merged (frame, tile) axis, vmap."""
-    ntiles = (-(-height // config.tile_h)) * (-(-width // config.tile_w))
-    per_frame = config.row_anchors * ntiles
-    tiles = tiles.reshape((tiles.shape[0] // per_frame, per_frame)
-                          + tiles.shape[1:])
+@functools.partial(jax.jit, static_argnames=("width", "height", "config",
+                                             "mode", "interpret"))
+def _render_group(mvps, vertex_grid, uv_grid, texture_f32, width, height,
+                  config: RasterConfig, mode: str, interpret: bool):
+    """One kernel launch for a group of frames -> (T, H, W, 4) uint8."""
+    vertex_grid = jnp.asarray(vertex_grid, jnp.float32)
+    uv_grid = jnp.asarray(uv_grid, jnp.float32)
+    vg, box = jax.vmap(
+        lambda m: _prep(m, vertex_grid, uv_grid, width, height, config))(mvps)
+    T, _, rows, cols = vg.shape
+    anchors, ntiles = box.shape[1], box.shape[2]
+    n_out = T * anchors * ntiles * _KT_H * _KT_W
+    kernel = functools.partial(
+        _raster_kernel, ntc=-(-width // _KT_W), ntiles=ntiles,
+        anchors=anchors, rows=rows, cols=cols, height=height,
+        edge_cull=config.edge_cull_threshold)
+    outs = pl.pallas_call(
+        kernel,
+        grid=(ntiles, anchors, T),
+        out_shape=[jax.ShapeDtypeStruct((n_out,), jnp.float32)] * 6,
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=_NUM_WARPS,
+                                                num_stages=1),
+        interpret=interpret,
+        name="raster_tiles",
+    )(vg.reshape(-1), box.reshape(-1))
+    outs = [o.reshape(T, anchors, ntiles, _KT_H * _KT_W) for o in outs]
     return jax.vmap(
-        lambda t: _shade_stage_impl(t, texture_f32, width, height, config, mode)
-    )(tiles)
-
-
-def render_frame_pallas(mvp, vertex_grid, uv_grid, texture_f32, width, height,
-                        config: RasterConfig = RasterConfig(), mode: str = "texture"):
-    """Render one frame via the Pallas path.
-
-    Deliberately composed from three separately-jitted stages rather than one fused
-    jit: XLA wraps the Pallas custom call in layout copies of the multi-hundred-MB
-    coefficient arrays when everything is fused (measured 5x slower end-to-end at
-    1080p). Dispatches are asynchronous, so composing at the Python level costs
-    nothing in steady state.
-    """
-    assert config.row_anchors <= 2, \
-        "the Pallas tiled path implements 1 or 2 row anchors (use the XLA " \
-        "grid path for higher anchor counts)"
-    cov, attr, px0, py0, jlo, jhi = _prep_stage(
-        mvp, vertex_grid, uv_grid, width, height, config
-    )
-    tiles = raster_pairs_pallas(cov, attr, px0, py0, jlo, jhi, height, config)
-    return _shade_stage(tiles, texture_f32, width, height, config, mode)
-
-
-def _coeff_bytes_per_frame(width, height, config: RasterConfig) -> int:
-    """HBM footprint of one frame's plane-coefficient buffers (cov + attr)."""
-    ntiles = (-(-height // config.tile_h)) * (-(-width // config.tile_w))
-    cells = config.window_rows * config.window_cols
-    tc = min(config.chunk_tris // 2, cells)
-    nchunks = 2 * (-(-cells // tc))
-    return 2 * config.row_anchors * ntiles * nchunks * 12 * tc * 4
-
-
-_COEFF_HBM_BUDGET = 4 << 30  # leave most of a v5e's 16 GB for XLA scratch
+        lambda *o: _shade(o, texture_f32, width, height, anchors, mode))(*outs)
 
 
 def render_frames_pallas(mvps, vertex_grid, uv_grid, texture_f32, width, height,
-                         config: RasterConfig = RasterConfig(), mode: str = "texture",
-                         frame_batch: int = 16):
-    """Batched frames via the Pallas path -> (T, height, width, 4) uint8.
+                         config: RasterConfig = RasterConfig(),
+                         mode: str = "texture", frame_batch: int = 8,
+                         interpret: bool = False):
+    """Render a batch of frames -> (T, height, width, 4) uint8.
 
-    Frames are rendered in groups of ``frame_batch``: one vmapped prep dispatch,
-    one Pallas call over the merged (frame, tile) axis, one vmapped shade. Host
-    dispatch costs ~0.8 ms per call (measured; an earlier ~7 ms figure was
-    wrong), so the old 3-dispatches-per-frame loop paid a few ms/frame of
-    host-side overhead at small frame sizes; grouping amortises that to 3
-    dispatches per group (worth ~10-17% at VGA). The group size is clamped so
-    the coefficient buffers stay within an HBM budget, and ``mvps`` is padded
-    to a group multiple (one compiled shape, no remainder recompiles).
+    Frames render in groups of ``frame_batch`` per kernel launch; the last
+    group is padded to the group size, so a clip compiles one shape.
+    ``interpret=True`` runs the kernel in the Pallas interpreter (tests on the
+    CPU); otherwise it compiles for the GPU.
     """
-    assert config.row_anchors <= 2, \
-        "the Pallas tiled path implements 1 or 2 row anchors (use the XLA " \
-        "grid path for higher anchor counts)"
     mvps = jnp.asarray(mvps, jnp.float32)
     T = mvps.shape[0]
-    per_frame = max(_coeff_bytes_per_frame(width, height, config), 1)
-    fb = max(1, min(frame_batch, _COEFF_HBM_BUDGET // per_frame, T))
+    fb = max(1, min(frame_batch, T))
     pad = (-T) % fb
     if pad:
         mvps = jnp.concatenate([mvps, jnp.repeat(mvps[-1:], pad, axis=0)])
-    frames = []
-    for s in range(0, T + pad, fb):
-        cov, attr, px0, py0, jlo, jhi = _prep_stage_batched(
-            mvps[s:s + fb], vertex_grid, uv_grid, width, height, config
-        )
-        tiles = raster_pairs_pallas(cov, attr, px0, py0, jlo, jhi, height, config)
-        frames.append(
-            _shade_stage_batched(tiles, texture_f32, width, height, config, mode)
-        )
-    out = jnp.concatenate(frames, axis=0) if len(frames) > 1 else frames[0]
+    frames = [_render_group(mvps[s:s + fb], vertex_grid, uv_grid, texture_f32,
+                            width, height, config, mode, interpret)
+              for s in range(0, T + pad, fb)]
+    out = jnp.concatenate(frames) if len(frames) > 1 else frames[0]
     return out[:T]
+
+
+def render_frame_pallas(mvp, vertex_grid, uv_grid, texture_f32, width, height,
+                        config: RasterConfig = RasterConfig(),
+                        mode: str = "texture", interpret: bool = False):
+    """Render one frame -> (height, width, 4) uint8."""
+    return render_frames_pallas(jnp.asarray(mvp, jnp.float32)[None],
+                                vertex_grid, uv_grid, texture_f32, width,
+                                height, config, mode, 1, interpret)[0]

@@ -3,12 +3,15 @@
 Implements exactly the semantics in :mod:`depthrenderer_tpu.ops.common` (projection,
 CCW front faces, min-z depth test with lowest-triangle-id ties, perspective-correct
 UVs, bilinear clamp-to-edge texture sampling, black clear colour) with the dumbest
-possible algorithm: for every pixel, test every triangle. Intended only for small
-test scenes; the production rasterisers are validated against this.
+possible algorithm: for every triangle in id order, test every pixel centre inside
+its bounding box (no pixel outside it can be covered). Intended for test scenes up
+to about mesh density 8 at 640x480; the production rasterisers are validated
+against this.
 
 This plays the role the OpenGL driver played for the reference — an independent
 implementation of the ``shader.vert``/``shader.frag`` + ``glDrawElements`` pipeline
-(``DepthRenderer/render.py:448,799-822``) that the TPU kernels must agree with.
+(``DepthRenderer/render.py:448,799-822``) that the device rasterisers must agree
+with.
 """
 
 from __future__ import annotations
@@ -51,22 +54,23 @@ def _bilinear(texture, u, v):
     return top + (bot - top) * fy
 
 
-def clip_near_plane(vertices, uvs, indices, mvp, eps=1e-9):
-    """Clip triangles straddling the camera plane (``clip_w = eps``) host-side.
+def clip_near_plane(vertices, uvs, indices, mvp):
+    """Clip triangles straddling the near plane (``clip_z = -clip_w``) host-side.
 
     GL clips primitives to the frustum in clip space (fixed-function, fed by
-    ``glDrawElements`` — ``DepthRenderer/render.py:448``); every vertex it
-    keeps has ``clip_w > 0``. This package's rasterisers instead apply the
-    near/far planes per PIXEL (``z_ndc ∈ [-1, 1]``), which is exact whenever
-    all three corners have ``clip_w > 0`` (screen-space barycentrics are then
-    projectively valid). The one gap is triangles STRADDLING ``clip_w = 0``:
-    a sign-flipped corner corrupts the whole projected triangle, so they used
-    to be masked wholesale (the round-3 documented approximation). This
-    Sutherland-Hodgman pass closes the gap: it clips exactly those triangles
-    against ``clip_w = eps`` in MODEL space (``clip_w`` is affine in the
-    model-space position, so the interpolation parameter from the w values is
-    exact, in f64), after which the per-pixel z test reproduces GL's near
-    clip exactly (intersection attrs lerp identically).
+    ``glDrawElements`` — ``DepthRenderer/render.py:448``). This package's
+    rasterisers instead apply the near/far planes per PIXEL
+    (``z_ndc ∈ [-1, 1]``), which is exact whenever all three corners have
+    ``clip_w > 0`` (screen-space barycentrics are then projectively valid).
+    The gap is triangles crossing the camera plane: a sign-flipped corner
+    corrupts the whole projected triangle. This Sutherland-Hodgman pass clips
+    the triangles that cross the near plane, in MODEL space (``clip_z +
+    clip_w`` is affine in the model-space position, so the interpolation
+    parameter is exact, in f64), as GL does. The kept part has ``clip_w`` of
+    at least the near distance, so its projected corners stay at screen
+    coordinates that f32 rasterisers can use (clipping at ``clip_w = 0``
+    instead would put them near infinity); the per-pixel z test then
+    reproduces GL's near clip (intersection attrs lerp identically).
 
     :return: (vertices2, uvs2, indices2) numpy arrays — unchanged inputs when
         nothing straddles (the common case: a fast any() bail-out).
@@ -75,8 +79,9 @@ def clip_near_plane(vertices, uvs, indices, mvp, eps=1e-9):
     uvs = np.asarray(uvs, np.float64)
     tri = np.asarray(indices).reshape(-1, 3)
     mvp = np.asarray(mvp, np.float64)
-    w = vertices @ mvp[3, :3] + mvp[3, 3]  # clip_w per vertex (affine)
-    inside = w > eps
+    near = mvp[2] + mvp[3]
+    w = vertices @ near[:3] + near[3]  # clip_z + clip_w per vertex (affine)
+    inside = w > 0
     tin = inside[tri]                      # (T, 3)
     nin = tin.sum(axis=1)
     straddle = (nin > 0) & (nin < 3)
@@ -92,9 +97,9 @@ def clip_near_plane(vertices, uvs, indices, mvp, eps=1e-9):
     verts_l, uvs_l = new_v[0], new_uv[0]
 
     def intersect(a, b):
-        """Model-space lerp to the w = eps crossing between vertices a, b."""
+        """Model-space lerp to the near-plane crossing between a and b."""
         nonlocal vcount
-        t = (eps - w[a]) / (w[b] - w[a])
+        t = -w[a] / (w[b] - w[a])
         verts_l.append(vertices[a] + (vertices[b] - vertices[a]) * t)
         uvs_l.append(uvs[a] + (uvs[b] - uvs[a]) * t)
         vcount += 1
@@ -168,8 +173,6 @@ def rasterize_reference(vertices, uvs, indices, mvp, texture, width, height,
     # Pixel centres in window coordinates (y up), top-down row order.
     qx = np.arange(width, dtype=np.float64) + 0.5
     qy = height - (np.arange(height, dtype=np.float64) + 0.5)
-    QX = np.broadcast_to(qx[None, :], (height, width))
-    QY = np.broadcast_to(qy[:, None], (height, width))
 
     best_z = np.full((height, width), np.inf)
     best_tri = np.full((height, width), -1, dtype=np.int64)
@@ -177,29 +180,37 @@ def rasterize_reference(vertices, uvs, indices, mvp, texture, width, height,
 
     inv_area = np.where(valid, 1.0 / np.where(valid, area2, 1.0), 0.0)
 
-    chunk = 256
-    for start in range(0, len(tri), chunk):
-        sl = slice(start, min(start + chunk, len(tri)))
-        for k in range(sl.stop - sl.start):
-            t = start + k
-            if not valid[t]:
-                continue
-            a, b, c = p0[t], p1[t], p2[t]
-            # λ numerators via edge functions (see common.triangle_planes).
-            e0 = (c[0] - b[0]) * (QY - b[1]) - (c[1] - b[1]) * (QX - b[0])
-            e1 = (a[0] - c[0]) * (QY - c[1]) - (a[1] - c[1]) * (QX - c[0])
-            e2 = (b[0] - a[0]) * (QY - a[1]) - (b[1] - a[1]) * (QX - a[0])
-            l0 = e0 * inv_area[t]
-            l1 = e1 * inv_area[t]
-            l2 = e2 * inv_area[t]
-            covered = (l0 >= 0) & (l1 >= 0) & (l2 >= 0)
-            z = l0 * z0[t] + l1 * z1[t] + l2 * z2[t]
-            covered &= (z >= -1.0) & (z <= 1.0)
-            better = covered & (z < best_z)
-            best_z = np.where(better, z, best_z)
-            best_tri = np.where(better, t, best_tri)
-            for i, l in enumerate((l0, l1, l2)):
-                best_l[..., i] = np.where(better, l, best_l[..., i])
+    # Bounding boxes in pixel index space: column j covers centre j + 0.5,
+    # row i covers centre height - i - 0.5.
+    xs = np.stack([p0[:, 0], p1[:, 0], p2[:, 0]], axis=1)
+    ys = np.stack([p0[:, 1], p1[:, 1], p2[:, 1]], axis=1)
+    c_lo = np.clip(np.ceil(xs.min(1) - 0.5), 0, width).astype(np.int64)
+    c_hi = np.clip(np.floor(xs.max(1) - 0.5) + 1, 0, width).astype(np.int64)
+    r_lo = np.clip(np.ceil(height - ys.max(1) - 0.5), 0, height).astype(np.int64)
+    r_hi = np.clip(np.floor(height - ys.min(1) - 0.5) + 1, 0,
+                   height).astype(np.int64)
+
+    for t in np.nonzero(valid & (c_hi > c_lo) & (r_hi > r_lo))[0]:
+        rs, cs = slice(r_lo[t], r_hi[t]), slice(c_lo[t], c_hi[t])
+        QX = qx[None, cs]
+        QY = qy[rs, None]
+        a, b, c = p0[t], p1[t], p2[t]
+        # λ numerators via edge functions (see common.triangle_planes).
+        e0 = (c[0] - b[0]) * (QY - b[1]) - (c[1] - b[1]) * (QX - b[0])
+        e1 = (a[0] - c[0]) * (QY - c[1]) - (a[1] - c[1]) * (QX - c[0])
+        e2 = (b[0] - a[0]) * (QY - a[1]) - (b[1] - a[1]) * (QX - a[0])
+        l0 = e0 * inv_area[t]
+        l1 = e1 * inv_area[t]
+        l2 = e2 * inv_area[t]
+        covered = (l0 >= 0) & (l1 >= 0) & (l2 >= 0)
+        z = l0 * z0[t] + l1 * z1[t] + l2 * z2[t]
+        covered &= (z >= -1.0) & (z <= 1.0)
+        # Ascending ids and a strict "<": the lowest id wins exact ties.
+        better = covered & (z < best_z[rs, cs])
+        best_z[rs, cs] = np.where(better, z, best_z[rs, cs])
+        best_tri[rs, cs] = np.where(better, t, best_tri[rs, cs])
+        for i, l in enumerate((l0, l1, l2)):
+            best_l[rs, cs, i] = np.where(better, l, best_l[rs, cs, i])
 
     covered = best_tri >= 0
     t = np.clip(best_tri, 0, None)

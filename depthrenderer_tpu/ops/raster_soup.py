@@ -2,7 +2,7 @@
 
 Algorithm: triangles are processed in fixed-size chunks with a running
 (best-z, best-λ, best-triangle) state per pixel — a flash-attention-style streaming
-min instead of a scatter, so it maps cleanly onto XLA/TPU. Work is O(pixels ×
+min instead of a scatter, so it maps cleanly onto XLA. Work is O(pixels ×
 triangles), so this path is for small scenes, tests and the non-grid-mesh capability
 fallback; the tiled grid rasteriser (:mod:`.raster_grid`) is the production path.
 

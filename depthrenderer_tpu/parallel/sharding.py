@@ -3,18 +3,19 @@
 Rendering novel views is embarrassingly parallel over frames and scenes, so the
 design is pure data parallelism over a 1-D device mesh: scene data is replicated (or
 sharded, for the many-scene farm), the frame/scene axis is sharded, and XLA moves
-nothing over ICI except the optional reduction for batch statistics. This replaces
+nothing between devices except the optional reduction for batch statistics. The
+cards of one host are joined all to all, so the mesh follows the algorithm alone.
+This replaces
 the reference's sequential ``ContextSwitcher`` loop (``render_many.py:270-292``) and
 its thread-pool writers with: device-parallel rendering + host-side writer farm.
 
-Everything here works identically on a real TPU slice and on the fake
+Everything here works identically on several GPUs and on the fake
 ``--xla_force_host_platform_device_count`` CPU mesh used in tests (SURVEY.md §4).
+Each shard renders with the rasteriser :func:`runtime.raster_impl` picks, unless
+the caller names one.
 """
 
 from __future__ import annotations
-
-from functools import partial
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -22,48 +23,15 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from ..ops import raster_grid
 from ..ops.common import RasterConfig
+from ..render import frames_renderer
+from ..runtime import raster_impl
 
 
 def make_render_mesh(devices=None, axis_name: str = "batch") -> Mesh:
     """A 1-D device mesh over all (or the given) devices."""
     devices = np.asarray(devices if devices is not None else jax.devices())
     return Mesh(devices, axis_names=(axis_name,))
-
-
-def _render_frames_impl(impl: str, scan_config=None):
-    """Resolve the per-shard frame renderer (the production Pallas kernels or
-    the XLA fallback) so multi-chip runs exercise the same compute path as
-    single-chip ones. ``scan_config`` (a ScanConfig) overrides the scan path's
-    suggested config — the farm's --quality knob threads through here
-    (VERDICT r3 next-round #8: one production path for all models,
-    ``render_many.py:270-292``)."""
-    if impl == "pallas":
-        from ..ops import raster_pallas
-
-        return raster_pallas.render_frames_pallas
-    if impl == "scan":
-        from ..ops import raster_scan
-
-        # The scan kernel is the single-chip production fast path; per-shard it
-        # runs via the traceable variant (in-trace f32 MVP inverse). Interpret
-        # mode keeps the fake CPU mesh (tests, dryrun) executable.
-        interpret = jax.devices()[0].platform != "tpu"
-
-        def scan_frames(mvps_local, vgrid, uvgrid, tex, width, height, config,
-                        mode="texture", frame_batch: int = 4):
-            return raster_scan.render_frames_scan_traceable(
-                mvps_local, vgrid, uvgrid, tex, width, height,
-                config=scan_config, mode=mode, interpret=interpret,
-            )
-
-        return scan_frames
-    if impl == "grid":
-        return raster_grid.render_frames_grid
-    raise ValueError(
-        f"Unknown sharded raster impl {impl!r} (want 'grid', 'pallas' or 'scan')"
-    )
 
 
 def _pad_to_multiple(x, mult, axis=0):
@@ -80,13 +48,12 @@ def render_frames_sharded(mesh: Mesh, mvps, vertex_grid, uv_grid, texture_f32,
                           width: int, height: int,
                           config: RasterConfig = RasterConfig(),
                           mode: str = "texture", frame_batch: int = 4,
-                          with_stats: bool = False, impl: str = "grid",
-                          scan_config=None):
+                          with_stats: bool = False, impl: str = "auto"):
     """Render a clip with its frame axis sharded over the device mesh.
 
     Scene data (vertex grid, UVs, texture) is replicated; each device renders its
     contiguous shard of frames. Optionally returns global batch statistics (mean
-    luminance per device-shard reduced with ``psum`` over ICI) as a cheap
+    luminance per device-shard reduced with ``pmean`` across devices) as a cheap
     batch-QA signal.
 
     :param mvps: (T, 4, 4) per-frame model-view-projection matrices.
@@ -102,7 +69,7 @@ def render_frames_sharded(mesh: Mesh, mvps, vertex_grid, uv_grid, texture_f32,
     uv_grid = jnp.asarray(uv_grid, jnp.float32)
     texture_f32 = jnp.asarray(texture_f32, jnp.float32)
 
-    render_frames = _render_frames_impl(impl, scan_config)
+    render_frames = frames_renderer(raster_impl() if impl == "auto" else impl)
 
     def shard_fn(mvps_local, vgrid, uvgrid, tex):
         frames = render_frames(
@@ -134,50 +101,54 @@ def render_frames_sharded(mesh: Mesh, mvps, vertex_grid, uv_grid, texture_f32,
     return result[:true_t]
 
 
+def shard_scenes(mesh: Mesh, arrays):
+    """Pad scene-major arrays to a multiple of the mesh size and place them,
+    each scene shard on its own device (``NamedSharding`` over the scene
+    axis). Returns the placed arrays; :func:`render_scenes_sharded` takes them
+    as they are, so scene data crosses to the devices once per farm."""
+    (axis,) = mesh.axis_names
+    num = mesh.devices.size
+    sharding = NamedSharding(mesh, P(axis))
+    return tuple(
+        jax.device_put(_pad_to_multiple(jnp.asarray(a, jnp.float32), num)[0],
+                       sharding)
+        for a in arrays)
+
+
 def render_scenes_sharded(mesh: Mesh, mvps, vertex_grids, uv_grids, textures_f32,
                           width: int, height: int,
                           config: RasterConfig = RasterConfig(),
                           mode: str = "texture", frame_batch: int = 4,
-                          impl: str = "grid", scan_config=None):
+                          impl: str = "auto"):
     """Render many scenes, sharding the *scene* axis over the device mesh.
 
-    The TPU-native replacement for ``render_many.py``'s sequential per-model loop:
-    every device owns a contiguous shard of scenes and renders all views of each.
+    Replaces ``render_many.py``'s sequential per-model loop: every device owns
+    a contiguous shard of scenes and renders all views of each.
 
     :param mvps: (S, T, 4, 4) — per-scene, per-view MVPs.
     :param vertex_grids: (S, n, n, 3); :param uv_grids: (S, n, n, 2);
-    :param textures_f32: (S, Ht, Wt, 4).
+    :param textures_f32: (S, Ht, Wt, 4) — each may come from
+        :func:`shard_scenes` (then already padded and placed).
     :return: (S, T, height, width, 4) uint8 frames, scene axis sharded.
     """
     (axis,) = mesh.axis_names
     num = mesh.devices.size
-
-    mvps = jnp.asarray(mvps, jnp.float32)
-    vertex_grids = jnp.asarray(vertex_grids, jnp.float32)
-    uv_grids = jnp.asarray(uv_grids, jnp.float32)
-    textures_f32 = jnp.asarray(textures_f32, jnp.float32)
+    true_s = mvps.shape[0]
+    render_frames = frames_renderer(raster_impl() if impl == "auto" else impl)
 
     if num == 1:
-        # Single-device mesh: shard_map partitions nothing, and the one
-        # fused jit it forces around the whole per-scene pipeline (prep +
-        # Pallas kernel + unpack, via lax.map) inserts layout copies around
-        # the pallas_call — the round-2 lesson, re-measured on the preset-5
-        # farm workload (8 scenes x 16 views, 640x480/d8): 17.9 scene-
-        # views/s through shard_map vs 194.8 through the host-orchestrated
-        # per-scene loop below (11x, `experiments/farm_probe.py`). Real
-        # multi-chip meshes keep the shard_map path: there the scene axis
-        # genuinely partitions and per-device throughput is not the
-        # bottleneck this farm measures.
-        return _render_scenes_host(mvps, vertex_grids, uv_grids,
-                                   textures_f32, width, height, config,
-                                   mode, frame_batch, impl, scan_config)
+        # Single-device mesh: shard_map partitions nothing, so compose each
+        # scene's own jitted pipeline on the host (async dispatch pipelines
+        # the scenes) instead of one lax.map over scenes inside a jit.
+        mvps = jnp.asarray(mvps, jnp.float32)
+        return jnp.stack([
+            render_frames(mvps[s], vertex_grids[s], uv_grids[s],
+                          textures_f32[s], width, height, config, mode,
+                          frame_batch=max(frame_batch, 1))
+            for s in range(true_s)])
 
-    mvps, true_s = _pad_to_multiple(mvps, num, axis=0)
-    vertex_grids, _ = _pad_to_multiple(vertex_grids, num, axis=0)
-    uv_grids, _ = _pad_to_multiple(uv_grids, num, axis=0)
-    textures_f32, _ = _pad_to_multiple(textures_f32, num, axis=0)
-
-    render_frames = _render_frames_impl(impl, scan_config)
+    mvps, vertex_grids, uv_grids, textures_f32 = shard_scenes(
+        mesh, (mvps, vertex_grids, uv_grids, textures_f32))
 
     def shard_fn(mvps_local, vgrids, uvgrids, texs):
         def one_scene(args):
@@ -197,40 +168,5 @@ def render_scenes_sharded(mesh: Mesh, mvps, vertex_grids, uv_grids, textures_f32
         check_vma=False,  # see render_frames_sharded
     )
     frames = jax.jit(fn)(mvps, vertex_grids, uv_grids, textures_f32)
-    return frames[:true_s]
-
-
-def _render_scenes_host(mvps, vertex_grids, uv_grids, textures_f32,
-                        width, height, config, mode, frame_batch,
-                        impl, scan_config):
-    """Per-scene host-orchestrated render for a 1-device mesh.
-
-    Composes each impl's own separately-jitted pipeline (async dispatch
-    pipelines the scenes) instead of one shard_map-fused jit — measured 11x
-    on the farm workload (see render_scenes_sharded). Returns the same
-    (S, T, height, width, 4) uint8 stack the sharded path produces.
-    """
-    S = mvps.shape[0]
-    if impl == "scan":
-        from ..ops import raster_scan
-
-        n = int(vertex_grids.shape[1])
-        cfg = scan_config if scan_config is not None \
-            else raster_scan.suggest_scan_config(n, width, height)
-        interpret = jax.devices()[0].platform != "tpu"
-        outs = [raster_scan.render_frames_scan(
-            mvps[s], vertex_grids[s], uv_grids[s], textures_f32[s],
-            width, height, cfg, mode, interpret) for s in range(S)]
-    elif impl == "pallas":
-        from ..ops import raster_pallas
-
-        outs = [raster_pallas.render_frames_pallas(
-            mvps[s], vertex_grids[s], uv_grids[s], textures_f32[s],
-            width, height, config, mode, frame_batch=max(frame_batch, 1))
-            for s in range(S)]
-    else:
-        outs = [raster_grid.render_frames_grid(
-            mvps[s], vertex_grids[s], uv_grids[s], textures_f32[s],
-            width, height, config, mode, frame_batch=max(frame_batch, 1))
-            for s in range(S)]
-    return jnp.stack(outs)
+    # Slice only when scenes were padded: slicing re-lays the array out.
+    return frames if frames.shape[0] == true_s else frames[:true_s]

@@ -1,7 +1,7 @@
 """Tracing and profiling utilities.
 
 The reference's observability is a frame timer and mesh-gen timing logs
-(``utils.py:523-538``, ``render.py:538-543``); the TPU equivalent adds
+(``utils.py:523-538``, ``render.py:538-543``); this package adds
 ``jax.profiler`` device traces and per-stage wall-clock timing (SURVEY.md §5).
 """
 

@@ -11,10 +11,13 @@ Two layers, replacing ``MeshRenderer`` (``DepthRenderer/render.py:568-861``):
   previous one due to PBO latency, ``render.py:803-805``); there are no window
   events.
 
-* :func:`render_clip` / :class:`ClipRenderer` — the TPU-native batched pipeline: the
-  whole camera path becomes a ``(T, 4, 4)`` MVP batch, frames render in chunks on
-  device while the host encodes the previous chunk (JAX async dispatch gives the
-  overlap the reference built from double PBOs — ``render.py:775-797``).
+* :func:`render_clip` — the batched pipeline: the whole camera path becomes a
+  ``(T, 4, 4)`` MVP batch, frames render in chunks on device while the host
+  encodes the previous chunk (JAX async dispatch gives the overlap the reference
+  built from double PBOs — ``render.py:775-797``).
+
+The grid rasteriser is chosen by :func:`runtime.raster_impl` unless a caller
+names one (``"grid"``, ``"pallas"``, or ``"soup"`` for the per-frame loop).
 """
 
 from __future__ import annotations
@@ -26,35 +29,27 @@ import numpy as np
 
 from .ops import raster_grid, raster_soup
 from .ops.common import RasterConfig, suggest_config
+from .runtime import raster_impl
 from .scene import Camera, Mesh
 from .utils import FrameTimer, log
 
 _HIGHEST = jax.lax.Precision.HIGHEST
 
 
-def _auto_impl(grid_n: Optional[int] = None,
-               edge_cull_threshold: Optional[float] = None) -> str:
-    """Pick the rasteriser implementation for the product surfaces.
+def frames_renderer(impl):
+    """The batched frame renderer of a grid rasteriser implementation: a name,
+    or a function with :func:`raster_grid.render_frames_grid`'s signature
+    (tests pass the kernel in the Pallas interpreter this way)."""
+    if callable(impl):
+        return impl
+    if impl == "pallas":
+        from .ops import raster_pallas
 
-    On real TPUs: the column-crossing-scan kernel (the production fast path,
-    ~8x the tiled kernel at 1080p/d10; edge culling runs in-kernel via
-    ScanConfig.edge_cull_threshold) whenever the grid fits its VMEM window
-    budget; the tiled Pallas kernel otherwise. Elsewhere: the portable XLA
-    path (Pallas interpret mode on CPU is far slower).
-    """
-    del edge_cull_threshold  # scan culls in-kernel since round 3
-    try:
-        on_tpu = jax.devices()[0].platform == "tpu"
-    except Exception:
-        return "grid"
-    if not on_tpu:
-        return "grid"
-    if grid_n is not None:
-        from .ops.raster_scan import scan_supported
-
-        if scan_supported(grid_n):
-            return "scan"
-    return "pallas"
+        return raster_pallas.render_frames_pallas
+    if impl == "grid":
+        return raster_grid.render_frames_grid
+    raise ValueError(f"unknown grid rasteriser {impl!r} (want 'grid' or "
+                     f"'pallas')")
 
 
 def _grid_arrays(mesh: Mesh):
@@ -99,8 +94,7 @@ class MeshRenderer:
         self.config = config
         self._config_auto = config is None  # re-derive on mesh swap when auto
         self.mode = mode
-        self._impl_requested = impl
-        self.impl = _auto_impl() if impl == "auto" else impl
+        self.impl = raster_impl() if impl == "auto" else impl
 
         self.frame_timer = FrameTimer()
         self.is_paused = False
@@ -131,10 +125,6 @@ class MeshRenderer:
             if self.config is None or self._config_auto:
                 self.config = suggest_config(n, self.width, self.height)
                 self._config_auto = True
-            # Auto impl is per-mesh: the scan fast path needs the grid size to
-            # know whether its VMEM window budget fits.
-            if self._impl_requested == "auto":
-                self.impl = _auto_impl(n)
 
     @property
     def frame_buffer_shape(self):
@@ -152,28 +142,15 @@ class MeshRenderer:
         )
         if self._mesh.is_grid and self.impl != "soup":
             cfg = self.config if self.config is not None else RasterConfig()
-            if self.impl == "scan":
-                from .ops import raster_scan
-
-                n = self._vgrid.shape[0]
-                frame = raster_scan.render_frame_scan(
-                    mvp, self._vgrid, self._uvgrid, self._texture_f32,
-                    self.width, self.height,
-                    raster_scan.suggest_scan_config(n, self.width, self.height),
-                    self.mode,
-                )
-            elif self.impl == "pallas":
+            if self.impl == "pallas":
                 from .ops import raster_pallas
 
-                frame = raster_pallas.render_frame_pallas(
-                    mvp, self._vgrid, self._uvgrid, self._texture_f32,
-                    self.width, self.height, cfg, self.mode,
-                )
+                render_frame = raster_pallas.render_frame_pallas
             else:
-                frame = raster_grid.render_frame_grid(
-                    mvp, self._vgrid, self._uvgrid, self._texture_f32,
-                    self.width, self.height, cfg, self.mode,
-                )
+                render_frame = raster_grid.render_frame_grid
+            frame = render_frame(mvp, self._vgrid, self._uvgrid,
+                                 self._texture_f32, self.width, self.height,
+                                 cfg, self.mode)
         else:
             frame = raster_soup.rasterize_soup(
                 self._mesh.vertices, self._mesh.texture_coordinates,
@@ -202,8 +179,7 @@ class MeshRenderer:
 
         NOTE: this per-frame dispatch-and-read-back loop is the API-parity
         surface, not the throughput path — each ``draw()`` synchronously
-        fetches the frame to the host, so a remote/tunneled TPU caps it at
-        transfer speed regardless of kernel speed. Batched clips should use
+        fetches the frame to the host. Batched clips should use
         :func:`render_clip` (grouped kernel launches + pipelined readback).
         """
         import time
@@ -272,9 +248,7 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
                 frame_batch: int = 8,
                 on_frames: Optional[Callable[[int, np.ndarray], None]] = None,
                 impl: str = "auto", binning_quantile: float = 0.995,
-                edge_cull_threshold: Optional[float] = None,
-                quality: bool = False, patch: bool = False,
-                colfix="auto"):
+                edge_cull_threshold: Optional[float] = None):
     """Batched clip rendering: the whole camera path in device-chunked batches.
 
     :param mesh: a grid :class:`Mesh`.
@@ -283,23 +257,8 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
         ``camera_position @ animation.batch(times)``).
     :param on_frames: callback ``(start_index, frames_uint8)`` per chunk; host-side
         encoding runs while the next chunk renders on device (async dispatch).
-    :param quality: fidelity-over-speed knob for the scan fast path
-        (dual-column self-contained records + full strip rows; see
-        ``raster_scan.suggest_scan_config``). No effect on the other impls —
-        they are already lossless given ``binning_quantile=1.0``.
-    :param patch: mid-tier fidelity knob for the scan fast path — the
-        hole-driven sparse transposed patch pass (``ScanConfig.patch``;
-        measured at 1080p/d10: flips vs the lossless grid 1.0% -> 0.34% at
-        ~2.6x frame time vs quality mode's 0.19% at ~3.7x). Mutually
-        exclusive with ``quality``; no effect on the other impls. Superseded
-        in round 4 by the default colfix pass, which is both faster and
-        higher-fidelity (see ``colfix``); kept for API parity.
-    :param colfix: the in-kernel column-exhaustive hole fill's fan half-width
-        (``ScanConfig.colfix``): ``"auto"`` (default) lets
-        ``suggest_scan_config`` pick (1, or 3 under ``quality``), ``None``
-        disables it (reverting to the round-3 fast config, ~59 -> 87 fps at
-        1080p/d10 for -3.8 dB GL frontal), an int 0-3 forces a fan width.
-        Scan impl only.
+    :param impl: ``"auto"`` (:func:`runtime.raster_impl`), ``"grid"`` or
+        ``"pallas"``.
     :return: total frame count (frames are delivered via ``on_frames``), or the
         stacked (T, H, W, 4) array when ``on_frames`` is None.
     """
@@ -307,24 +266,12 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
 
     assert mesh.is_grid, "render_clip requires a grid mesh (use rasterize_soup otherwise)"
     vgrid, uvgrid, n = _grid_arrays(mesh)
-    impl = _auto_impl(n, edge_cull_threshold) if impl == "auto" else impl
-    if impl == "scan":
-        from .ops import raster_scan as _rs
-
-        if not _rs.scan_supported(n):
-            log(f"NOTICE: grid n={n} exceeds the scan kernel's VMEM window "
-                f"budget; falling back to the tiled path for this clip.")
-            impl = _auto_impl(None, edge_cull_threshold)
-        # (The scan prep masks clip_w <= 0 vertices since round 3 — the same
-        # whole-triangle drop as the tiled paths, raster_scan._prep_scan_impl
-        # — so near-plane-crossing views no longer force a fallback.)
-    if impl == "scan" or config is not None:
+    frames_fn = frames_renderer(raster_impl() if impl == "auto" else impl)
+    if config is not None:
         cfg = config
     else:
         # Size the candidate windows from the clip's actual camera path — roughly
         # halves the rasteriser's work vs the worst-case heuristic.
-        import jax.numpy as jnp
-
         proj_np = np.asarray(projection, np.float32)
         model_np = np.asarray(mesh.transform, np.float32)
         sample_mvps = np.stack([
@@ -344,8 +291,7 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
                 f"sampled views (binning_quantile={binning_quantile}); triangles "
                 f"near strong depth edges may be dropped there. Re-run with "
                 f"--binning-quantile 1.0 for lossless binning.")
-    # One-time device residency for the scene (repeat host->device transfers are
-    # expensive, especially through a remote-TPU tunnel).
+    # One-time device residency for the scene.
     vgrid = jax.device_put(vgrid)
     uvgrid = jax.device_put(uvgrid)
     texture_f32 = jax.device_put(np.asarray(mesh.texture.image, np.float32))
@@ -357,93 +303,31 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
                       precision=_HIGHEST)
 
     total = int(view_batch.shape[0])
-    collected = [] if on_frames is None else None
+    collected = []
 
-    pending = []  # (start, device_frames) — keep a chunk in flight
-    if impl == "scan":
-        from .ops import raster_scan
-
-        # Chunk on the kernel's frame-group boundary and pad the tail chunk up
-        # to it: every dispatch then reuses ONE compiled kernel shape (a fresh
-        # T shape costs a multi-minute Mosaic compile on remote-TPU setups).
-        group = raster_scan._FRAME_GROUP
-        frame_batch = group
-
-        if quality and patch:
-            raise ValueError("--quality and --patch are mutually exclusive "
-                             "(quality already runs the full transposed "
-                             "pass the patch sparsifies)")
-        scan_cfg = raster_scan.suggest_scan_config(
-            n, width, height, quality=quality, patch=patch,
-            edge_cull_threshold=edge_cull_threshold,
-            **({} if colfix == "auto" else {"colfix": colfix}))
-        # Surface hull-window clipping the way the tiled path surfaces binning
-        # overflow (sampled views; 0 = the scan saw every candidate row).
-        sample = mvps[np.linspace(0, total - 1, min(3, total)).astype(int)]
-        ovf = max(
-            int(raster_scan._prep_scan(m, vgrid, width, height, scan_cfg)[-1])
-            for m in sample
-        )
-        if ovf:
-            log(f"WARNING: scan depth-hull window clipped {ovf} candidate "
-                f"row(s) at the sampled views (rmax={scan_cfg.rmax}); raise "
-                f"ScanConfig.rmax or expect misses at extreme depth relief.")
-
-        # The row-edge quality pipeline supports the raw-u32 output only in
-        # texture mode (its passes merge as shaded u32 by depth there; the
-        # debug/wireframe modes merge in attribute space and return u8). The
-        # sparse patch pipeline likewise engages in texture mode only
-        # (render_frames_scan falls through to the single pass otherwise,
-        # whose raw form covers every mode).
-        raw = (not scan_cfg.row_edge) or mode == "texture"
-
-        def frames_fn(mvps_c, vg, uvg, tex, w, h, _cfg, mode_, frame_batch):
-            k = mvps_c.shape[0]
-            if k < group:  # pad the tail chunk to the compiled group shape
-                mvps_c = jnp.concatenate(
-                    [mvps_c, jnp.repeat(mvps_c[-1:], group - k, axis=0)]
-                )
-            dev = raster_scan.render_frames_scan(
-                mvps_c, vg, uvg, tex, w, h, scan_cfg, mode_, raw_u32=raw
-            )
-            return dev[:k]
-
-        if raw:
-            def post_frames(host):
-                return raster_scan.unpack_raw_frames(host, width, height)
-        else:
-            def post_frames(host):
-                return host
-    elif impl == "pallas":
-        from .ops import raster_pallas
-
-        frames_fn = raster_pallas.render_frames_pallas
-    else:
-        frames_fn = raster_grid.render_frames_grid
-    if impl != "scan":
-        def post_frames(host):  # noqa: F811 - identity for u8-frame impls
-            return host
-
-    for start in range(0, total, frame_batch):
-        stop = min(start + frame_batch, total)
-        dev = frames_fn(
-            mvps[start:stop], vgrid, uvgrid, texture_f32, width, height, cfg, mode,
-            frame_batch=stop - start,
-        )
-        pending.append((start, dev))
-        if len(pending) > 1:
-            s, d = pending.pop(0)
-            host = post_frames(np.asarray(d))
-            if on_frames is not None:
-                on_frames(s, host)
-            else:
-                collected.append(host)
-    for s, d in pending:
-        host = post_frames(np.asarray(d))
+    def deliver(start, dev):
+        host = np.asarray(dev)
         if on_frames is not None:
-            on_frames(s, host)
+            on_frames(start, host)
         else:
             collected.append(host)
+
+    pending = None  # keep one chunk in flight while the host takes the last
+    for start in range(0, total, frame_batch):
+        stop = min(start + frame_batch, total)
+        # Every chunk has frame_batch frames (the last one padded), so a clip
+        # compiles one shape.
+        chunk = mvps[start:stop]
+        if stop - start < frame_batch:
+            chunk = jnp.concatenate(
+                [chunk, jnp.repeat(chunk[-1:], frame_batch - (stop - start), 0)])
+        dev = frames_fn(chunk, vgrid, uvgrid, texture_f32, width, height, cfg,
+                        mode, frame_batch=frame_batch)[:stop - start]
+        if pending is not None:
+            deliver(*pending)
+        pending = (start, dev)
+    if pending is not None:
+        deliver(*pending)
 
     if on_frames is None:
         return np.concatenate(collected, axis=0)

@@ -3,7 +3,7 @@
 Capability parity with the reference's frame-granular task wrappers
 (``DepthRenderer/utils.py:217-342``): delay a side effect by N frames, run it once,
 or run it every Nth frame — used by the CLIs to sequence writers and shutdown around
-the frame loop. In the batched TPU pipeline these gates are usually pre-computed as
+the frame loop. In the batched device pipeline these gates are usually pre-computed as
 frame index schedules (see ``render.py``), but the imperative API is kept for parity
 and for the streaming host loop.
 """

@@ -2,7 +2,7 @@
 
 Capability parity with the reference's transform math
 (``DepthRenderer/utils.py:20-123``), re-designed as pure ``jnp`` functions so they can
-be traced under ``jit``/``vmap`` and batched over animation frame times on TPU.
+be traced under ``jit``/``vmap`` and batched over animation frame times.
 
 Two semantics notes carried over from the reference (required for pixel parity):
 
@@ -26,7 +26,8 @@ import jax.numpy as jnp
 def matmul(a, b):
     """Matrix multiply at full float32 precision.
 
-    JAX's default matmul precision on TPU is bfloat16, which is far too coarse for
+    JAX's default matmul precision may run float32 products in bfloat16 or TF32
+    (on GPUs, in the tensor cores), which is far too coarse for
     transform composition and vertex projection (sub-pixel accuracy is a correctness
     requirement here). Every matmul inside this library goes through this helper (or
     passes ``precision`` explicitly) rather than mutating the user's global config.

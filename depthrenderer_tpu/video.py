@@ -7,9 +7,9 @@ directly:
 
 * :class:`AviFile` writes a standards-conforming AVI RIFF container with either
   raw uncompressed BGR frames (``DIB ``, bit-exact, large) or motion-JPEG frames
-  (``MJPG``, compact; Pillow/libjpeg-turbo fast path, with a from-scratch
-  baseline-JPEG encoder in ``native/frameops.c`` keeping the path
-  dependency-free) — both playable everywhere.
+  (``MJPG``, compact; encoded by the from-scratch baseline-JPEG encoder in
+  ``native/frameops.c``) — both playable everywhere. Decoding MJPG frames back
+  (post-processing, tests) uses Pillow; raw DIB frames decode without it.
 * :class:`Mp4File` writes a standards-conforming ISO-BMFF (MP4) container with
   motion-JPEG samples (``jpeg`` sample entry — decoded by ffmpeg, VLC and
   QuickTime). :func:`convert_to_mp4` prefers an H.264 transcode when ffmpeg
@@ -34,36 +34,23 @@ _AVIIF_KEYFRAME = 0x00000010
 
 
 def _encode_jpeg(rgb, quality: int) -> bytes:
-    """One baseline-JPEG frame for the MJPEG containers.
-
-    Pillow (libjpeg-turbo, SIMD) is the fast path when present (~20 ms/frame
-    at 1080p on one core vs ~56 ms for the scalar C encoder); the in-house
-    ``native.jpeg_encode`` (frameops.c) keeps MJPEG output fully
-    dependency-free — same 4:2:0 subsampling and Annex-K tables, measured
-    equal PSNR and within 1% of Pillow's output size on the sample scene.
-    Set DEPTHRENDERER_FORCE_NATIVE_JPEG=1 to prefer the native path.
-    """
-    rgb = np.ascontiguousarray(rgb)
-    force_native = os.environ.get("DEPTHRENDERER_FORCE_NATIVE_JPEG")
-    if not force_native:
-        try:
-            from PIL import Image
-
-            buf = _io.BytesIO()
-            Image.fromarray(rgb).save(buf, "JPEG", quality=quality)
-            return buf.getvalue()
-        except ImportError:
-            pass
+    """One baseline-JPEG frame for the MJPEG containers: the native encoder
+    (``frameops.c``, 4:2:0, Annex-K tables), which needs a C compiler at
+    first use."""
     from . import native
 
-    if native.available():
-        return native.jpeg_encode(rgb, quality=quality)
-    # Last resort (no Pillow, no compiler): Pillow import error surfaces.
+    if not native.available():
+        raise RuntimeError("MJPG output needs the native frame ops library "
+                           "(a C compiler and zlib at first use); use the "
+                           "'DIB ' codec without it")
+    return native.jpeg_encode(np.ascontiguousarray(rgb), quality=quality)
+
+
+def _decode_jpeg(payload: bytes):
+    """Decode one JPEG frame to (H, W, 3) uint8 RGB (needs Pillow)."""
     from PIL import Image
 
-    buf = _io.BytesIO()
-    Image.fromarray(rgb).save(buf, "JPEG", quality=quality)
-    return buf.getvalue()
+    return np.asarray(Image.open(_io.BytesIO(payload)).convert("RGB"))
 
 
 def ffmpeg_available() -> bool:
@@ -175,8 +162,7 @@ class Mp4File:
         self._f.write(struct.pack(">I", 0) + b"mdat")  # size patched at close
 
     def write(self, frame):
-        """Append one top-down RGB(A) uint8 frame (JPEG via ``_encode_jpeg``:
-        Pillow fast path, in-house native encoder when Pillow is absent)."""
+        """Append one top-down RGB(A) uint8 frame (JPEG via ``_encode_jpeg``)."""
         frame = np.asarray(frame)
         if frame.ndim != 3:
             raise ValueError(f"Expected (H, W, C) frame, got shape {frame.shape}")
@@ -265,8 +251,6 @@ def remux_avi_to_mp4(avi_path, mp4_path=None, remove_source=False, quality=92):
     MJPG chunks (``00dc``) move into the MP4 byte-identical; raw DIB chunks
     (``00db``) are JPEG-encoded first. :return: the MP4 path.
     """
-    from PIL import Image
-
     avi_path = str(avi_path)
     if mp4_path is None:
         mp4_path = avi_path[:-4] + ".mp4" if avi_path.lower().endswith(".avi") \
@@ -332,8 +316,6 @@ def read_mp4_info(path):
 def read_mp4_frames(path):
     """Decode all samples of an :class:`Mp4File` MP4 via the ``stsz``/``stco``
     tables. Returns top-down (H, W, 3) uint8 RGB frames."""
-    from PIL import Image
-
     data = open(path, "rb").read()
     sizes, offsets = [], []
     for _, kind, a, b in _walk_mp4_boxes(data, 0, len(data)):
@@ -343,10 +325,7 @@ def read_mp4_frames(path):
         elif kind == b"stco":
             n = struct.unpack(">I", data[a + 4 : a + 8])[0]
             offsets = list(struct.unpack(f">{n}I", data[a + 8 : a + 8 + 4 * n]))
-    return [
-        np.asarray(Image.open(_io.BytesIO(data[o : o + s])).convert("RGB"))
-        for o, s in zip(offsets, sizes)
-    ]
+    return [_decode_jpeg(data[o : o + s]) for o, s in zip(offsets, sizes)]
 
 
 class AviFile:
@@ -355,7 +334,7 @@ class AviFile:
     :param path: output file path.
     :param size: (width, height) of frames.
     :param fps: frame rate (may be fractional).
-    :param codec: ``"MJPG"`` (JPEG frames via Pillow; default) or ``"DIB "``
+    :param codec: ``"MJPG"`` (JPEG frames, native encoder; default) or ``"DIB "``
         (uncompressed BGR; bit-exact).
     :param quality: JPEG quality for MJPG.
 
@@ -505,8 +484,7 @@ class AviFile:
         ``y``: (H, W) uint8; ``cb``/``cr``: (H/2, W/2) uint8 — the layout
         :func:`depthrenderer_tpu.io.rgba_to_yuv420` packs on device. The
         native encoder consumes the planes directly (no host colour
-        conversion); without the native library the chroma is upsampled and
-        the Pillow RGB path used (same visual content, slower).
+        conversion).
         """
         assert not self._closed, "AviFile already closed."
         assert self.codec == "MJPG", "write_yuv420 requires the MJPG codec"
@@ -517,18 +495,8 @@ class AviFile:
                 f"{self.width}x{self.height}")
         from . import native
 
-        if native.available():
-            payload = native.jpeg_encode_yuv420(y, cb, cr,
-                                                quality=self.quality)
-        else:
-            from .io import yuv420_to_rgb
-
-            packed = np.concatenate([y.reshape(-1),
-                                     np.asarray(cb, np.uint8).reshape(-1),
-                                     np.asarray(cr, np.uint8).reshape(-1)])
-            payload = _encode_jpeg(
-                yuv420_to_rgb(packed, self.height, self.width), self.quality)
-        self._append_chunk(payload)
+        self._append_chunk(native.jpeg_encode_yuv420(y, cb, cr,
+                                                     quality=self.quality))
 
     def _append_chunk(self, payload: bytes):
         chunk_id = b"00db" if self.codec == "DIB " else b"00dc"
@@ -578,10 +546,6 @@ def read_avi_frames(path):
     post-processing (mosaic/concat/paired — the reference shells out to ffmpeg for
     these, ``render_many.py:27-147``; this framework can do them natively).
     """
-    import io as _io2
-
-    from PIL import Image
-
     w, h, _, _ = read_avi_info(path)
     data = open(path, "rb").read()
     # Only scan inside the movi list (idx1 entries also contain chunk ids).
@@ -596,7 +560,7 @@ def read_avi_frames(path):
         size = struct.unpack("<I", data[pos + 4 : pos + 8])[0]
         payload = data[pos + 8 : pos + 8 + size]
         if chunk_id == b"00dc":
-            frames.append(np.asarray(Image.open(_io2.BytesIO(payload)).convert("RGB")))
+            frames.append(_decode_jpeg(payload))
         elif chunk_id == b"00db":
             row = (w * 3 + 3) & ~3
             arr = np.frombuffer(payload, np.uint8)[: row * h].reshape(h, row)

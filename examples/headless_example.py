@@ -5,7 +5,7 @@ an Xvfb virtual display and a moderngl FBO to render without a screen): here the
 whole framework is headless by construction, so the example is simply the smallest
 end-to-end render — synthetic colour + depth, one frontal frame, PNG out.
 
-Run:  python examples/headless_example.py  (works on CPU or TPU)
+Run:  python examples/headless_example.py  (works on CPU or GPU)
 """
 
 import os

@@ -44,38 +44,23 @@ def test_batch_parser_reference_surface():
 
 
 def test_quality_flag_surface():
-    # --quality (CLI + batch) selects the dual-column scan config through
-    # suggest_scan_config(quality=True); default stays the fast config.
-    from depthrenderer_tpu.cli import build_parser as cli_parser
+    # The CLI and batch parsers keep the reference surface and carry no
+    # rasteriser-tier flags: the rasteriser is runtime.raster_impl()'s choice.
+    import pytest
+
     from depthrenderer_tpu.batch import build_parser as batch_parser
-    from depthrenderer_tpu.ops.raster_scan import suggest_scan_config
+    from depthrenderer_tpu.cli import build_parser as cli_parser
 
-    assert cli_parser().parse_args(["c.png", "d.png", "--quality"]).quality
-    assert not cli_parser().parse_args(["c.png", "d.png"]).quality
-    assert batch_parser().parse_args(["c.png", "depths", "--quality"]).quality
-
-    cfg = suggest_scan_config(1025, 1920, 1080, quality=True)
-    assert cfg.dual_col and cfg.sr == 12 and cfg.off == 5 and cfg.dmax is None
-    assert cfg.pack_xy and not cfg.big_grid
-    assert cfg.colfix == 3  # round 4: quality runs the widest column fan
-    base = suggest_scan_config(1025, 1920, 1080)
-    # Round 4: colfix=1 defaults ON, and the strips shrink to sr=6/off=2
-    # (pixel-identical under the fixup, measured on chip — ROADMAP).
-    assert not base.dual_col and base.colfix == 1 and base.sr == 6
-    # Disabling colfix reverts the strip knobs to the round-3 production
-    # values (sr=6 is only fidelity-neutral WITH the fixup).
-    nofix = suggest_scan_config(1025, 1920, 1080, colfix=None)
-    assert nofix.colfix is None and nofix.sr == 10 and nofix.dmax == 5
-    # Explicit overrides survive the quality defaults.
-    assert suggest_scan_config(1025, 1920, 1080, quality=True, sr=10).sr == 10
-    # d11/d12 grids fall to the big_grid variant: quality sheds dual_col and
-    # colfix (standard-variant only) instead of crashing, and reverts the
-    # colfix-shrunken strips.
-    big = suggest_scan_config(4097, 3840, 2160, quality=True)
-    assert big.big_grid and not big.dual_col and big.sr == 12
-    assert big.colfix is None
-    bigf = suggest_scan_config(4097, 3840, 2160)
-    assert bigf.big_grid and bigf.colfix is None and bigf.sr == 10
+    for parser, pos in ((cli_parser(), ["c.png", "d.png"]),
+                        (batch_parser(), ["c.png", "depths"])):
+        args = parser.parse_args(pos + ["-fps", "30", "-mesh-density", "9",
+                                        "-displacement-factor", "2.0"])
+        assert (args.fps, args.mesh_density, args.displacement_factor) == \
+            (30, 9, 2.0)
+        for flag in ("--impl", "--quality", "--patch", "--colfix"):
+            assert not any(flag in a.option_strings for a in parser._actions)
+            with pytest.raises(SystemExit):
+                parser.parse_args(pos + [flag])
 
 
 def test_mesh_from_texture_without_depth(checker_texture):

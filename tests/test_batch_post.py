@@ -109,9 +109,6 @@ def test_batch_cli_end_to_end(tmp_path):
 
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["DEPTHRENDERER_PLATFORM"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_test_cache")
-    env.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
     out = tmp_path / "out"
     res = subprocess.run(
         [sys.executable, "-m", "depthrenderer_tpu.batch",
@@ -155,10 +152,8 @@ def test_batch_cli_sharded(tmp_path):
 
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["DEPTHRENDERER_PLATFORM"] = "cpu"
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
                         + " --xla_force_host_platform_device_count=8").strip()
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_test_cache")
     out = tmp_path / "out"
     res = subprocess.run(
         [sys.executable, "-m", "depthrenderer_tpu.batch",
@@ -195,10 +190,8 @@ def test_batch_cli_sharded_yuv420(tmp_path):
 
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["DEPTHRENDERER_PLATFORM"] = "cpu"
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
                         + " --xla_force_host_platform_device_count=8").strip()
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_test_cache")
     out = tmp_path / "out"
     res = subprocess.run(
         [sys.executable, "-m", "depthrenderer_tpu.batch",
@@ -229,3 +222,34 @@ def test_batch_cli_sharded_yuv420(tmp_path):
         png = out / "frames" / model / "000000.png"
         assert png.exists()
         assert np.asarray(Image.open(png)).shape[:2] == (48, 64)
+
+
+def test_native_first_use_from_many_threads(tmp_path, monkeypatch):
+    # Writer threads ask for the library at once on first use; every one of
+    # them must get it (none may see a half-finished build as "unavailable").
+    import concurrent.futures as cf
+
+    from depthrenderer_tpu import native
+
+    if not native.available():
+        pytest.skip("no C compiler for the native library")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    monkeypatch.setattr(native, "_LIB", tmp_path / "_frameops.so")
+    with cf.ThreadPoolExecutor(8) as ex:
+        got = list(ex.map(lambda _: native.available(), range(16)))
+    assert all(got)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--width", "33", "--height", "24"],          # odd frame size
+    ["--codec", "DIB "],                           # not MJPG
+])
+def test_batch_yuv420_readback_refuses_clearly(tmp_path, argv):
+    from depthrenderer_tpu import batch, scenes
+
+    colour, maps = scenes.write_batch_tree(tmp_path, 0, 32, 24)
+    with pytest.raises(SystemExit, match="yuv420"):
+        batch.main([colour, maps, "-mesh-density", "2", "--frames", "2",
+                    "--sharded", "--readback", "yuv420", "-output-path",
+                    str(tmp_path / "out")] + argv)

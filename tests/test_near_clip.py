@@ -3,7 +3,7 @@
 Round-3 state: every rasteriser MASKED triangles with any corner at
 ``clip_w <= 0`` (documented approximation). Round 4 closes the gap for the
 oracle and the soup path with an exact host-side Sutherland-Hodgman clip
-against ``clip_w = eps`` (``raster_reference.clip_near_plane``); the per-pixel
+against the near plane (``raster_reference.clip_near_plane``); the per-pixel
 ``z_ndc in [-1, 1]`` test then reproduces GL's near/far planes exactly. The
 grid/pallas/scan production paths keep the documented masking (their poses
 stay far from the camera plane; ``render_clip`` reports offenders).
@@ -16,6 +16,10 @@ from depthrenderer_tpu.ops import raster_reference, raster_soup
 from depthrenderer_tpu.transforms import Axis
 
 from test_raster import assert_images_close, scene
+
+# The straddling pose of the GL golden (tools/make_gl_golden.py --view
+# near:3.1,15): camera 3.1 units out, 15 degrees about Y.
+NEAR_DZ, NEAR_ROT = 3.1, 15.0
 
 
 def _straddling_pose():
@@ -73,35 +77,30 @@ def test_oracle_and_soup_agree_at_straddling_pose(checker_texture):
 
 
 def test_oracle_matches_gl_at_straddling_pose():
-    """The clipped oracle vs a REAL OpenGL render (llvmpipe) at a pose where
-    211 of 289 vertices sit behind the camera plane. Measured bit-identical
-    at generation time (inf dB); gate far above BASELINE's 40 dB bar.
+    """The clipped oracle vs a REAL OpenGL render (llvmpipe) of the seeded
+    scene at a pose where 30 of 289 vertices sit behind the camera plane and
+    the straddling triangles fill half the frame. Gate far above BASELINE's
+    40 dB bar.
 
     Regenerate: python tools/make_gl_golden.py --width 320 --height 240
-    --density 4 --view near:0.8,30 --out tests/goldens/gl_sample_d4_near_320x240.png
+    --density 4 --view near:3.1,15 --out tests/goldens/gl_scene_d4_near_320x240.png
     """
     import os
-
-    from PIL import Image
 
     import depthrenderer_tpu as dr
     from depthrenderer_tpu.evaluate import masked_psnr
 
-    samples = "/root/reference/samples"
-    colour = dr.io.load_colour(f"{samples}/00000_colors.png")
-    depth = dr.io.resize(dr.io.load_depth(f"{samples}/00000_depth.png"),
-                         colour.shape)
+    colour, depth = dr.scenes.make_scene(0, 640, 480)
     mesh = dr.Mesh.from_texture(dr.Texture(colour), depth, density=4)
     mesh.vertices[:, 2] *= 4.0
     aspect = colour.shape[1] / colour.shape[0]
     proj = np.asarray(transforms.perspective(18.0, aspect))
     mvp = (
-        proj @ np.asarray(transforms.translation(dz=-0.8))
-        @ np.asarray(transforms.rotation(np.deg2rad(30.0), axis=Axis.Y))
+        proj @ np.asarray(transforms.translation(dz=-NEAR_DZ))
+        @ np.asarray(transforms.rotation(np.deg2rad(NEAR_ROT), axis=Axis.Y))
     ).astype(np.float32)
-    golden = np.asarray(Image.open(os.path.join(
-        os.path.dirname(__file__), "goldens",
-        "gl_sample_d4_near_320x240.png")))
+    golden = dr.io.load_image(os.path.join(
+        os.path.dirname(__file__), "goldens", "gl_scene_d4_near_320x240.png"))
     W, H = golden.shape[1], golden.shape[0]
     ours = raster_reference.rasterize_reference(
         mesh.vertices, mesh.texture_coordinates, mesh.indices, mvp,
@@ -124,27 +123,21 @@ def test_grid_exact_matches_gl_at_straddling_pose():
     render.py:448)."""
     import os
 
-    from PIL import Image
-
     import depthrenderer_tpu as dr
     from depthrenderer_tpu.evaluate import masked_psnr
     from depthrenderer_tpu.ops.raster_grid import render_frame_grid_exact
 
-    samples = "/root/reference/samples"
-    colour = dr.io.load_colour(f"{samples}/00000_colors.png")
-    depth = dr.io.resize(dr.io.load_depth(f"{samples}/00000_depth.png"),
-                         colour.shape)
+    colour, depth = dr.scenes.make_scene(0, 640, 480)
     mesh = dr.Mesh.from_texture(dr.Texture(colour), depth, density=4)
     mesh.vertices[:, 2] *= 4.0
     aspect = colour.shape[1] / colour.shape[0]
     proj = np.asarray(transforms.perspective(18.0, aspect))
     mvp = (
-        proj @ np.asarray(transforms.translation(dz=-0.8))
-        @ np.asarray(transforms.rotation(np.deg2rad(30.0), axis=Axis.Y))
+        proj @ np.asarray(transforms.translation(dz=-NEAR_DZ))
+        @ np.asarray(transforms.rotation(np.deg2rad(NEAR_ROT), axis=Axis.Y))
     ).astype(np.float32)
-    golden = np.asarray(Image.open(os.path.join(
-        os.path.dirname(__file__), "goldens",
-        "gl_sample_d4_near_320x240.png")))
+    golden = dr.io.load_image(os.path.join(
+        os.path.dirname(__file__), "goldens", "gl_scene_d4_near_320x240.png"))
     W, H = golden.shape[1], golden.shape[0]
     n = 2**4 + 1
     frame = render_frame_grid_exact(
@@ -152,7 +145,7 @@ def test_grid_exact_matches_gl_at_straddling_pose():
         mesh.texture_coordinates.reshape(n, n, 2),
         colour.astype(np.float32), W, H)
     away = masked_psnr(frame, golden, depth=depth)
-    # The straddler region is a large part of this view: without the round-5
-    # clipped merge the control measured ~11 dB here (void where the nearest
-    # geometry straddles). >= 40 is the BASELINE bar; measured 54+ dB.
+    # The straddler region is half of this view: without the clipped merge
+    # the grid path measures ~12.5 dB here (void where the nearest geometry
+    # straddles). >= 40 is the BASELINE bar.
     assert away >= 40.0, f"exact control masked PSNR vs GL {away:.1f} dB"

@@ -1,8 +1,12 @@
-"""Pallas kernel vs the XLA grid rasteriser (interpret mode on CPU)."""
+"""The Hopper tiled kernel (Pallas, Triton route) vs the XLA grid rasteriser.
+
+On the CPU the kernel runs in the Pallas interpreter (``interpret=True``); its
+compiled form is checked on the card by ``chip_smoke.py`` and by the
+``gpu``-marked test below.
+"""
 
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from depthrenderer_tpu import meshgen, transforms
 from depthrenderer_tpu.ops import raster_grid, raster_pallas
@@ -20,10 +24,8 @@ def _render_both(verts, uvs, mvp, tex, W, H, cfg, mode="texture"):
     vg = verts.reshape(n, n, 3)
     uvg = uvs.reshape(n, n, 2)
     a = np.asarray(raster_grid.render_frame_grid(mvp, vg, uvg, tex, W, H, cfg, mode))
-    with pltpu.force_tpu_interpret_mode():
-        b = np.asarray(
-            raster_pallas.render_frame_pallas(mvp, vg, uvg, tex, W, H, cfg, mode)
-        )
+    b = np.asarray(raster_pallas.render_frame_pallas(
+        mvp, vg, uvg, tex, W, H, cfg, mode, interpret=True))
     return a, b
 
 
@@ -63,13 +65,12 @@ def test_pallas_batched(checker_texture):
         (mvp @ np.asarray(transforms.rotation(np.deg2rad(a), axis=Axis.Y)))
         for a in (0.0, 2.0)
     ]).astype(np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        frames = np.asarray(
-            raster_pallas.render_frames_pallas(
-                mvps, verts.reshape(n, n, 3), uvs.reshape(n, n, 2),
-                checker_texture.astype(np.float32), 64, 48, CFG,
-            )
+    frames = np.asarray(
+        raster_pallas.render_frames_pallas(
+            mvps, verts.reshape(n, n, 3), uvs.reshape(n, n, 2),
+            checker_texture.astype(np.float32), 64, 48, CFG, interpret=True,
         )
+    )
     assert frames.shape == (2, 48, 64, 4)
     assert not np.array_equal(frames[0], frames[1])
 
@@ -85,14 +86,13 @@ def test_pallas_frame_grouping_pads_and_matches(checker_texture):
         (mvp @ np.asarray(transforms.rotation(np.deg2rad(a), axis=Axis.Y)))
         for a in (-2.0, 0.0, 2.0)
     ]).astype(np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        grouped = np.asarray(raster_pallas.render_frames_pallas(
-            mvps, vg, uvg, tex, 64, 48, CFG, frame_batch=2))
-        single = np.stack([
-            np.asarray(raster_pallas.render_frame_pallas(
-                mvps[t], vg, uvg, tex, 64, 48, CFG))
-            for t in range(3)
-        ])
+    grouped = np.asarray(raster_pallas.render_frames_pallas(
+        mvps, vg, uvg, tex, 64, 48, CFG, frame_batch=2, interpret=True))
+    single = np.stack([
+        np.asarray(raster_pallas.render_frame_pallas(
+            mvps[t], vg, uvg, tex, 64, 48, CFG, interpret=True))
+        for t in range(3)
+    ])
     assert grouped.shape == (3, 48, 64, 4)
     # Batched projection reassociates float ops; allow 1 LSB on isolated pixels.
     diff = np.abs(grouped.astype(int) - single.astype(int))
@@ -129,9 +129,9 @@ def test_pallas_dual_window_lossless(checker_texture):
                                    quantile=1.0, row_anchors=1, tile_h=8, tile_w=32)
     assert cfg.window_rows <= spans_cfg.window_rows
 
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(raster_pallas.render_frame_pallas(
-            mvp, verts.reshape(n, n, 3), uvs.reshape(n, n, 2), tex, W, H, cfg))
+    got = np.asarray(raster_pallas.render_frame_pallas(
+        mvp, verts.reshape(n, n, 3), uvs.reshape(n, n, 2), tex, W, H, cfg,
+        interpret=True))
     want = np.asarray(raster_soup.rasterize_soup(verts, uvs, idx, mvp, tex, W, H))
     assert_images_close(got, want, min_psnr=55.0, max_diff_frac=0.01)
 
@@ -151,3 +151,55 @@ def test_pallas_wireframe(checker_texture):
     assert_images_close(b, a, min_psnr=30.0, max_diff_frac=0.03)
     agree = ((b[..., :3].sum(-1) > 0) == (np.asarray(want)[..., :3].sum(-1) > 0)).mean()
     assert agree > 0.95
+
+
+@pytest.mark.parametrize("size", [(61, 37), (96, 72), (33, 9)])
+def test_pallas_pads_non_tile_aligned_sizes(checker_texture, size):
+    # Frames that are no multiple of the kernel tile: the padded pixels are
+    # cropped and the rest matches the XLA grid path.
+    verts, uvs, _, mvp, _ = scene(density=3, size=(24, 32), seed=6)
+    W, H = size
+    a, b = _render_both(verts, uvs, mvp.astype(np.float32),
+                        checker_texture.astype(np.float32), W, H, CFG)
+    assert b.shape == (H, W, 4)
+    assert_images_close(b, a, min_psnr=60.0, max_diff_frac=0.002)
+
+
+@pytest.mark.parametrize("anchors", [1, 2, 3])
+def test_pallas_row_anchors_match_grid(checker_texture, anchors):
+    # Windows smaller than the row span, tiled by row anchors: one program
+    # per (tile, anchor), merged by depth exactly as the XLA path merges.
+    import dataclasses
+
+    cfg = dataclasses.replace(CFG, window_rows=8, window_cols=16,
+                              row_anchors=anchors)
+    verts, uvs, _, mvp, _ = scene(density=4, size=(48, 64), seed=7)
+    mvp = (mvp @ np.asarray(transforms.rotation(np.deg2rad(8.0), axis=Axis.X))
+           ).astype(np.float32)
+    a, b = _render_both(verts, uvs, mvp, checker_texture.astype(np.float32),
+                        96, 72, cfg)
+    assert_images_close(b, a, min_psnr=60.0, max_diff_frac=0.002)
+
+
+def test_pallas_empty_frame(checker_texture):
+    # The whole mesh behind the camera: every triangle is masked.
+    verts, uvs, _, _, _ = scene(density=3, size=(24, 32), seed=2)
+    mvp = (np.asarray(transforms.perspective(18.0, 4 / 3))
+           @ np.asarray(transforms.translation(dz=10.0))).astype(np.float32)
+    _, b = _render_both(verts, uvs, mvp, checker_texture.astype(np.float32),
+                        64, 48, CFG)
+    assert (b[..., :3] == 0).all() and (b[..., 3] == 255).all()
+
+
+@pytest.mark.gpu
+def test_pallas_compiled_matches_grid_on_gpu(gpu, checker_texture):
+    """The kernel as compiled for the card, against the XLA grid path."""
+    verts, uvs, _, mvp, _ = scene(density=5, size=(48, 64), seed=1)
+    n = int(np.sqrt(len(verts)))
+    vg, uvg = verts.reshape(n, n, 3), uvs.reshape(n, n, 2)
+    tex = checker_texture.astype(np.float32)
+    a = np.asarray(raster_grid.render_frame_grid(mvp.astype(np.float32), vg,
+                                                 uvg, tex, 200, 150, CFG))
+    b = np.asarray(raster_pallas.render_frame_pallas(
+        mvp.astype(np.float32), vg, uvg, tex, 200, 150, CFG))
+    assert_images_close(b, a, min_psnr=60.0, max_diff_frac=0.002)

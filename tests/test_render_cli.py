@@ -15,7 +15,6 @@ from depthrenderer_tpu.scene import Camera, Mesh, Texture
 CFG = RasterConfig(tile_h=8, tile_w=32, window_rows=8, window_cols=8,
                    patch_size=4, map_batch=4)
 
-SAMPLES = "/root/reference/samples"
 
 
 def small_mesh(checker_texture, density=3):
@@ -138,13 +137,12 @@ def test_render_clip_streaming_callback(checker_texture):
 def test_cli_end_to_end(tmp_path):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["DEPTHRENDERER_PLATFORM"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_test_cache")
-    env.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+    from depthrenderer_tpu import scenes
+
+    colour, depth = scenes.write_pair(tmp_path / "in", 0, 640, 480)
     out = tmp_path / "frames"
     res = subprocess.run(
-        [sys.executable, "-m", "depthrenderer_tpu",
-         f"{SAMPLES}/00000_colors.png", f"{SAMPLES}/00000_depth.png",
+        [sys.executable, "-m", "depthrenderer_tpu", colour, depth,
          "-mesh-density", "5", "-fps", "10", "--frames", "12",
          "--width", "160", "--height", "120",
          "-output-path", str(out)],
@@ -153,7 +151,7 @@ def test_cli_end_to_end(tmp_path):
     )
     assert res.returncode == 0, res.stderr[-2000:]
     assert (out / "sample_frame.png").exists()
-    avi = out / "00000_colors.png.avi"
+    avi = out / "scene_colour.png.avi"
     assert avi.exists()
 
     from depthrenderer_tpu.video import read_avi_info
@@ -162,8 +160,8 @@ def test_cli_end_to_end(tmp_path):
     assert (w, h, frames) == (160, 120, 12)
     assert abs(fps - 10.0) < 0.1
 
-    from PIL import Image
+    from depthrenderer_tpu import io as dio
 
-    sample = np.asarray(Image.open(out / "sample_frame.png"))
+    sample = dio.load_image(out / "sample_frame.png")
     assert sample.shape == (120, 160, 4)
     assert sample[..., :3].sum() > 0  # not an empty frame

@@ -1,7 +1,7 @@
 """The quad-packed bilinear sampler vs the numpy f64 oracle.
 
 `common.sample_texture_bilinear` packs all four filter taps into one (N, 4) u32
-table row (TPU gathers cost per lookup, not per byte) and quantises texels to
+table row (one gather per pixel instead of four) and quantises texels to
 8 bits before filtering, matching the reference's GL_RGBA8 uploads
 (DepthRenderer/render.py:359-361). These tests pin:
   * exact agreement with the oracle for uint8-derived textures (the only kind

@@ -146,9 +146,11 @@ def test_devices_are_faked():
 
 
 def test_frames_sharded_pallas_interpret(checker_texture):
-    """The production Pallas kernel must run under shard_map (VERDICT r1 weak #3);
-    exercised in interpret mode on the fake CPU mesh."""
-    from jax.experimental.pallas import tpu as pltpu
+    """The Hopper kernel must run under shard_map; exercised in the Pallas
+    interpreter on the fake CPU mesh."""
+    from functools import partial
+
+    from depthrenderer_tpu.ops import raster_pallas
 
     vgrid, uvgrid, tex, proj, cam, sway = tiny_scene(checker_texture)
     W, H = 64, 48
@@ -157,11 +159,10 @@ def test_frames_sharded_pallas_interpret(checker_texture):
     mvps = (proj[None] @ (cam[None] @ views)).astype(np.float32)
 
     mesh = make_render_mesh()
-    with pltpu.force_tpu_interpret_mode():
-        frames = np.asarray(render_frames_sharded(
-            mesh, mvps, vgrid, uvgrid, tex, W, H, CFG, frame_batch=2,
-            impl="pallas",
-        ))
+    frames = np.asarray(render_frames_sharded(
+        mesh, mvps, vgrid, uvgrid, tex, W, H, CFG, frame_batch=2,
+        impl=partial(raster_pallas.render_frames_pallas, interpret=True),
+    ))
     ref = np.asarray(render_frames_grid(mvps, vgrid, uvgrid, tex, W, H, CFG,
                                         frame_batch=2))
     assert frames.shape == ref.shape
@@ -169,65 +170,3 @@ def test_frames_sharded_pallas_interpret(checker_texture):
     assert diff.mean() < 1e-3, f"{diff.sum()} pixels differ from the grid path"
 
 
-def test_frames_sharded_scan_interpret(checker_texture):
-    """The scan fast path must run under shard_map (round-3 VERDICT #3: the
-    sharded farm could not use the production fast path); interpret mode on
-    the fake CPU mesh, compared against its own single-device render."""
-    from depthrenderer_tpu.ops import raster_scan
-
-    vgrid, uvgrid, tex, proj, cam, sway = tiny_scene(checker_texture)
-    W, H = 64, 48
-    times = animation.frame_times(8, 24.0)
-    views = np.asarray(sway.batch(times))
-    mvps = (proj[None] @ (cam[None] @ views)).astype(np.float32)
-
-    mesh = make_render_mesh()
-    frames = np.asarray(render_frames_sharded(
-        mesh, mvps, vgrid, uvgrid, tex, W, H, CFG, impl="scan",
-    ))
-    single = np.asarray(raster_scan.render_frames_scan_traceable(
-        mvps, vgrid, uvgrid, tex, W, H, interpret=True))
-    assert frames.shape == single.shape
-    diff = np.any(frames.astype(int) != single.astype(int), axis=-1)
-    assert diff.mean() < 1e-3, f"{diff.sum()} pixels differ from single-device"
-
-
-def test_frames_sharded_scan_quality(checker_texture):
-    """--quality on the sharded farm (VERDICT r3 next-round #8): the row-edge
-    two-pass union must run in-trace under shard_map and match the
-    host-orchestrated quality pipeline."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from depthrenderer_tpu.ops import raster_scan
-
-    vgrid, uvgrid, tex, proj, cam, sway = tiny_scene(checker_texture)
-    W, H = 64, 48
-    times = animation.frame_times(4, 24.0)
-    views = np.asarray(sway.batch(times))
-    mvps = (proj[None] @ (cam[None] @ views)).astype(np.float32)
-
-    n = vgrid.shape[0]
-    qcfg = raster_scan.ScanConfig(rmax=16, cw=128, sr=8, off=3,
-                                  dual_col=True, row_edge=True)
-    mesh = make_render_mesh()
-    frames = np.asarray(render_frames_sharded(
-        mesh, mvps, vgrid, uvgrid, tex, W, H, CFG, impl="scan",
-        scan_config=qcfg,
-    ))
-    with pltpu.force_tpu_interpret_mode():
-        single = np.asarray(raster_scan.render_frames_scan(
-            mvps, vgrid, uvgrid, tex, W, H, qcfg, frame_batch=4,
-            interpret=True))
-    assert frames.shape == single.shape
-    # The traceable path's f32 in-trace MVP inverse (vs the host f64 one)
-    # perturbs the perspective u/v weights by ~1 ulp — measured round 4: every
-    # differing pixel is a both-covered +-1-LSB bilinear rounding diff (34/12288
-    # px; zero coverage flips, zero >8-LSB flips). Gate the two classes
-    # separately: winner/coverage flips must be ZERO, and the rounding class
-    # must stay at +-2 LSB on a small fraction of pixels — a count-of-any-LSB
-    # threshold drifts with every kernel change and was flaky at 2e-3.
-    d = np.abs(frames.astype(int) - single.astype(int)).max(-1)
-    assert (d > 8).sum() == 0, f"{(d > 8).sum()} winner flips vs single-device"
-    assert d.max() <= 2, f"rounding diffs exceed 2 LSB (max {d.max()})"
-    assert (d > 0).mean() < 2e-2, \
-        f"{(d > 0).sum()} pixels differ from single-device"

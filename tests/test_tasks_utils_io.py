@@ -140,10 +140,84 @@ def test_resize():
     assert out.shape == (16, 12, 3)
 
 
-def test_sample_assets_load():
-    # The reference's sample pair must load through our pipeline.
-    colour = dio.load_colour("/root/reference/samples/00000_colors.png")
-    depth = dio.load_depth("/root/reference/samples/00000_depth.png")
+def test_sample_assets_load(tmp_path):
+    # The seeded sample pair must load through the reference loaders.
+    from depthrenderer_tpu import scenes
+
+    colour_path, depth_path = scenes.write_pair(tmp_path, 0, 640, 480)
+    colour = dio.load_colour(colour_path)
+    depth = dio.load_depth(depth_path)
     assert colour.shape == (480, 640, 4)
     assert depth.shape == (480, 640)
     assert depth.max() == 255
+    want_colour, want_depth = scenes.make_scene(0, 640, 480)
+    np.testing.assert_array_equal(colour, want_colour)
+    # load_depth min-max normalises, as the reference does.
+    d = want_depth.astype(np.float64)
+    want = (255 * (d - d.min()) / (d.max() - d.min())).astype(np.uint8)
+    np.testing.assert_array_equal(depth, want)
+
+
+@pytest.mark.parametrize("shape", [(37, 53), (37, 53, 2), (37, 53, 3),
+                                   (37, 53, 4), (1, 1, 4)])
+def test_png_codec_round_trip(shape):
+    rng = np.random.default_rng(sum(shape))
+    img = rng.integers(0, 256, shape, dtype=np.uint8)
+    np.testing.assert_array_equal(dio.png_decode(dio.png_encode(img)), img)
+
+
+def test_png_codec_16bit_round_trip():
+    img = (np.arange(20, dtype=np.uint16).reshape(4, 5) * 3000)
+    out = dio.png_decode(dio.png_encode(img))
+    assert out.dtype == np.uint16
+    np.testing.assert_array_equal(out, img)
+
+
+@pytest.mark.parametrize("shape", [(30, 41), (30, 41, 3), (30, 41, 4)])
+def test_png_decodes_pillow_filters(shape):
+    # Pillow picks its filters adaptively (Paeth and Average included) and
+    # must read what png_encode writes.
+    import io as _io
+
+    from PIL import Image
+
+    yy, xx = np.mgrid[0:shape[0], 0:shape[1]]
+    img = ((xx * 7 + yy * 3) % 256).astype(np.uint8)
+    if len(shape) == 3:
+        img = np.stack([img, img * np.uint8(3), 255 - img, img][:shape[2]],
+                       -1)
+    buf = _io.BytesIO()
+    Image.fromarray(img).save(buf, "PNG")
+    np.testing.assert_array_equal(dio.png_decode(buf.getvalue()), img)
+    back = np.asarray(Image.open(_io.BytesIO(dio.png_encode(img))))
+    np.testing.assert_array_equal(back, img)
+
+
+def test_png_rejects_unsupported(tmp_path):
+    with pytest.raises(ValueError):
+        dio.png_decode(b"not a png")
+    import io as _io
+
+    from PIL import Image
+
+    buf = _io.BytesIO()
+    Image.fromarray(np.zeros((4, 4), np.uint8)).convert("P").save(buf, "PNG")
+    with pytest.raises(ValueError):
+        dio.png_decode(buf.getvalue())
+
+
+@pytest.mark.parametrize("src,dst", [
+    ((48, 64, 3), (100, 130)),    # upscale
+    ((123, 77), (40, 31)),        # downscale, grey
+    ((64, 64, 4), (64, 200)),     # one axis, RGBA
+    ((50, 60, 4), (37, 23)),      # RGBA with partial alpha
+    ((20, 30), (20, 30)),         # same size: identity
+])
+def test_resize_matches_pillow_lanczos(src, dst):
+    from PIL import Image
+
+    rng = np.random.default_rng(src[0])
+    img = rng.integers(0, 256, src, dtype=np.uint8)
+    want = np.asarray(Image.fromarray(img).resize((dst[1], dst[0]),
+                                                  Image.LANCZOS))
+    np.testing.assert_array_equal(dio.resize(img, dst), want)

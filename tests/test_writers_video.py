@@ -59,18 +59,21 @@ def test_native_jpeg_encoder_roundtrip():
 
 
 def test_avi_mjpg_native_encoder_path(tmp_path, monkeypatch):
-    """The MJPG container path must work end-to-end with the native encoder
-    forced (the no-Pillow deployment path)."""
+    """The MJPG container path end to end with the native encoder, with
+    Pillow hidden from the encode side (the no-Pillow deployment path)."""
+    import sys
+
     from depthrenderer_tpu import native
 
     if not native.available():
         pytest.skip("no C compiler for the native library")
-    monkeypatch.setenv("DEPTHRENDERER_FORCE_NATIVE_JPEG", "1")
+    monkeypatch.setitem(sys.modules, "PIL", None)
     w, h, n = 48, 32, 3
     path = tmp_path / "t.avi"
     with video.AviFile(path, (w, h), fps=24, codec="MJPG") as f:
         for frame in frames_gradient(n, w, h):
             f.write(frame)
+    monkeypatch.delitem(sys.modules, "PIL")
     frames = video.read_video_frames(path)
     assert len(frames) == n and frames[0].shape[:2] == (h, w)
 

@@ -1,11 +1,13 @@
 """Generate the true-OpenGL ground-truth golden for the BASELINE quality gate.
 
-Builds the BASELINE config #1 scene (reference samples pair, mesh density 8,
-single frontal view: fov 18, camera dz=-10, displacement 4 — the reference
-CLI's defaults, /root/reference/DepthRenderer/__main__.py:93-113) exactly as
-the reference would upload it to GL, renders it with tools/gl_groundtruth.c
-(Mesa llvmpipe — a real GL rasteriser, independent of everything in this
-package), and commits the result as tests/goldens/gl_sample_d8_frontal.png.
+Builds the BASELINE config #1 scene (the seeded scene of
+``depthrenderer_tpu.scenes``, seed 0 at 640x480, mesh density 8, single
+frontal view: fov 18, camera dz=-10, displacement 4 — the reference CLI's
+defaults, DepthRenderer/__main__.py:93-113) exactly as the reference would
+upload it to GL, renders it with tools/gl_groundtruth.c (Mesa llvmpipe — a
+real GL rasteriser, independent of everything in this package), and commits
+the result as tests/goldens/gl_scene_d8_frontal.png. The tool needs a C
+compiler and Mesa's ``libEGL.so.1``.
 
 The scene data fed to GL comes from this package's meshgen/io, whose numeric
 parity with the reference's Mesh.from_texture / load_* is pinned separately by
@@ -25,16 +27,17 @@ import tempfile
 
 import numpy as np
 
-os.environ.setdefault("DEPTHRENDERER_PLATFORM", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from depthrenderer_tpu import io as dio, transforms  # noqa: E402
-from depthrenderer_tpu import meshgen  # noqa: E402
+from depthrenderer_tpu import meshgen, scenes  # noqa: E402
 
-SAMPLES = "/root/reference/samples"
-GOLDEN = os.path.join(REPO, "tests", "goldens", "gl_sample_d8_frontal.png")
+SEED = 0
+SCENE_SIZE = (640, 480)  # the reference-CLI layout's colour/depth size
+GOLDEN = os.path.join(REPO, "tests", "goldens", "gl_scene_d8_frontal.png")
 TOOL_SRC = os.path.join(REPO, "tools", "gl_groundtruth.c")
 
 
@@ -75,12 +78,9 @@ def render_gl(exe, width, height, mvp, verts, uvs, indices, texture_topdown):
 
 
 def production_scene(width, height, density):
-    """The bench headline scene (bench.py): depth + texture resized to the
+    """The bench headline scene (bench.py): the seeded scene made at the
     output resolution, camera aspect = output aspect, sway camera path."""
-    colour = dio.load_colour(f"{SAMPLES}/00000_colors.png")
-    depth = dio.resize(dio.load_depth(f"{SAMPLES}/00000_depth.png"),
-                       (height, width))
-    texture = dio.resize(colour, (height, width))
+    texture, depth = scenes.make_scene(SEED, width, height)
     verts, uvs, indices = (np.asarray(a) for a in
                            meshgen.grid_mesh(depth, density))
     verts = verts.copy()
@@ -125,7 +125,7 @@ def main():
                     help="Use the bench headline scene layout: depth AND "
                          "texture resized to the output resolution, camera "
                          "aspect = output aspect (bench.py). Default layout is "
-                         "the reference-CLI one: native 640x480 colour/depth, "
+                         "the reference-CLI one: 640x480 colour/depth, "
                          "camera aspect = image aspect.")
     ap.add_argument("--out", default=None,
                     help="Output golden path (default: the d8 frontal golden).")
@@ -137,9 +137,7 @@ def main():
         texture, depth, verts, uvs, indices, proj, cam = production_scene(
             args.width, args.height, args.density)
     else:
-        colour = dio.load_colour(f"{SAMPLES}/00000_colors.png")
-        depth = dio.resize(dio.load_depth(f"{SAMPLES}/00000_depth.png"),
-                           colour.shape)
+        colour, depth = scenes.make_scene(SEED, *SCENE_SIZE)
         verts, uvs, indices = (np.asarray(a) for a in
                                meshgen.grid_mesh(depth, args.density))
         verts = verts.copy()
@@ -156,11 +154,9 @@ def main():
         frame = render_gl(exe, args.width, args.height, mvp, verts, uvs,
                           indices, texture)
 
-    from PIL import Image
-
     out = args.out or GOLDEN
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    Image.fromarray(frame).save(out)
+    dio.save_image(frame, out)
     print(f"wrote {out}")
 
     if args.check:
